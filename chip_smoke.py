@@ -7,11 +7,11 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. device: the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build: every CUDA source of the serving path, compiled in parallel from
-   the checkout (``src/repro_torch/kernels/csrc``) into ``build/repro_torch``;
-3. kernel vs plain: each kernel's wrapper on the card at the serving path's
-   shapes (and the reference's test shapes, and ragged ones), held against
-   its plain PyTorch version;
+2. build: every CUDA source of the port (``src/repro_torch/kernels/csrc``),
+   compiled in parallel from the checkout into ``build/repro_torch``;
+3. kernel vs plain: each kernel's wrapper on the card at the reference's
+   test shapes and ragged ones (``block_matmul`` also at the serving path's
+   shapes), held against its plain PyTorch version;
 4. main path: ``repro_torch.launch.serve`` serving inceptionv4 + mnasnet
    through the GPU-prefix / host-suffix engine, under the SwapLess plan and
    under a forced split, with every output held against a host-only forward
@@ -19,9 +19,17 @@ and prints no result line):
 5. where the time goes: warm requests one at a time (closed loop) under
    the SwapLess plan, and each stage's time on the card and on one host
    core;
-6. times: CUDA-event times of each kernel, its plain version and the one
-   PyTorch call that computes the same function, beside the card's bound,
-   launched eagerly and replayed from a CUDA graph (device time alone).
+6. model-zoo path: ``prefill_step`` of 2 x 2048-token prompts and 32 greedy
+   ``decode_step``s of gemma3-1b and then rwkv6-7b, bfloat16, full width
+   and depth, each kernel's launches counted and the shapes it was called at
+   recorded; then each new kernel against its plain version at those shapes;
+7. model-zoo correctness: float32, full width and depth, the full forward
+   (kernels on every layer) against ``prefill_step`` of 16 tokens plus
+   teacher-forced ``decode_step``s (which launch no hand kernel);
+8. times: CUDA-event times of each kernel at its path's shapes, its plain
+   version and the one PyTorch call that computes the same function (where
+   there is one), beside the card's bound, launched eagerly and replayed
+   from a CUDA graph (device time alone).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
@@ -29,10 +37,12 @@ result when no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -40,11 +50,17 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.configs import ARCHS, INPUT_SHAPES  # noqa: E402
 from repro_torch.core.planner import Plan  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import causal_attention, causal_attention_plain  # noqa: E402
 from repro_torch.kernels.matmul import matmul, matmul_plain  # noqa: E402
+from repro_torch.kernels.wkv6 import wkv6, wkv6_plain  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import attention, rwkv  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.models.cnn import (  # noqa: E402
     PAPER_CNN_SPECS,
@@ -67,8 +83,8 @@ DEVICE = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
-# Every kernel of the serving path: its wrapper (which counts launches),
-# plain version, source, and the TPU kernel of the JAX package it replaces.
+# Every kernel of the port: its wrapper (which counts launches), plain
+# version, source, and the TPU kernel of the JAX package it replaces.
 KERNELS = [
     {
         "name": "block_matmul",
@@ -78,6 +94,20 @@ KERNELS = [
         "wrapper": matmul,
         "plain": matmul_plain,
         "library": torch.matmul,
+    },
+    {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:26",
+        "wrapper": causal_attention,
+    },
+    {
+        "name": "wkv6",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6.py:30",
+        "wrapper": wkv6,
     },
 ]
 
@@ -108,7 +138,7 @@ def phase_device() -> str:
     )
     print(smi.stdout.strip())
     kind = torch.cuda.get_device_name(0)
-    print(f"torch device: {kind} (count {torch.cuda.device_count()})")
+    print(f"torch device: {kind} (count {torch.cuda.device_count()}); torch {torch.__version__}, CUDA {torch.version.cuda}")
     return kind
 
 
@@ -185,11 +215,10 @@ def phase_main_path() -> tuple[Plan, dict[str, int]]:
                 torch.testing.assert_close(c.output, want, rtol=OUTPUT_TOL, atol=OUTPUT_TOL)
         print(f"outputs of plan {run_plan.partition} match the host-only forward to {OUTPUT_TOL}")
 
-    # One pointwise product per prefix stage, each on the card.
+    # One pointwise product per prefix stage, each on the card; the CNNs
+    # have no attention or recurrence.
     expected = REQUESTS * (sum(plan.partition) + sum(FORCED_PLAN.partition))
-    assert launches["block_matmul"] == expected, (launches, expected)
-    for name, n in launches.items():
-        assert n > 0, f"{name} was not launched on the main path"
+    assert launches == {"block_matmul": expected, "flash_attention": 0, "wkv6": 0}, (launches, expected)
     return plan, launches
 
 
@@ -322,24 +351,439 @@ def phase_times(kernel: dict) -> dict:
     return totals
 
 
+# --------------------------------------------------------------------------
+# Model zoo: prefill and decode of gemma3-1b (flash_attention) and rwkv6-7b
+# (wkv6) at full width and depth
+# --------------------------------------------------------------------------
+ZOO = ("gemma3-1b", "rwkv6-7b")
+# Cut from INPUT_SHAPES["prefill_32k"] (32 prompts of 32768 tokens) to stay
+# within the smoke run's time; 2048 is the reference's CHUNKED_SEQ_THRESHOLD
+# and four of gemma3-1b's 512-token windows.
+ZOO_BATCH, ZOO_PROMPT, ZOO_DECODE = 2, 2048, 32
+ZOO_PROFILE_DECODE = 4   # decode steps under the profiler (its post-processing grows with events)
+ZOO_CHECK_LEN = {"gemma3-1b": 1024, "rwkv6-7b": 256}   # f32 check: 2 windows; 8 wkv chunks
+ZOO_CHECK_PREFILL = 16
+ZOO_CHECK_TOL = 2e-3   # tests/test_prefill_decode.py's prefill tolerance
+FLASH_TOL = {torch.float32: 5e-4, torch.bfloat16: 3e-2}   # TestFlashAttention
+WKV_TOL = 2e-3                                             # TestWKV6
+# (B, S, H, KV, hd, window): TestFlashAttention's shapes, a property-sweep
+# sample, the first-token case, gemma3's GQA at hd 256, and ragged lengths.
+FLASH_TEST_SHAPES = [
+    (2, 128, 4, 2, 32, 0), (2, 128, 4, 2, 32, 64), (2, 128, 4, 2, 32, 17),
+    (1, 256, 4, 2, 64, 100), (1, 32, 1, 1, 16, 16), (1, 64, 2, 2, 16, 0),
+    (1, 64, 4, 1, 256, 16),
+]
+FLASH_RAGGED_SHAPES = [
+    (1, 1, 2, 2, 16, 0), (1, 37, 4, 2, 32, 0), (2, 37, 2, 1, 64, 5),
+    (1, 100, 2, 1, 128, 0), (2, 600, 4, 1, 256, 512), (1, 1000, 16, 16, 64, 0),
+]
+# (B, T, H, hd): TestWKV6's shapes and property-sweep sample, and ragged ones.
+WKV_TEST_SHAPES = [(1, 64, 2, 16), (2, 32, 2, 8), (1, 16, 1, 8), (1, 128, 4, 32)]
+WKV_RAGGED_SHAPES = [(1, 1, 2, 64), (1, 37, 3, 32), (3, 100, 4, 64), (2, 33, 64, 64)]
+
+
+def flash_operands(shape, dtype, seed):
+    b, s, h, kv, hd, _ = shape
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, s, h, hd), generator=g).to(dtype).to(DEVICE)
+    k = torch.randn((b, s, kv, hd), generator=g).to(dtype).to(DEVICE)
+    v = torch.randn((b, s, kv, hd), generator=g).to(dtype).to(DEVICE)
+    return q, k, v
+
+
+def wkv_operands(shape, dtype, seed, with_state):
+    """r, k, v in ``dtype``; float32 decays exp(-exp(-2 + noise)) as the
+    model's initialisation gives them; float32 u and initial state."""
+    b, t, h, hd = shape
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn((b, t, h, hd), generator=g).to(dtype).to(DEVICE) for _ in range(3))
+    w = torch.exp(-torch.exp(-2.0 + 0.5 * torch.randn((b, t, h, hd), generator=g))).to(DEVICE)
+    u = (0.1 * torch.randn((h, hd), generator=g)).to(DEVICE)
+    state = torch.randn((b, h, hd, hd), generator=g).to(DEVICE) if with_state else None
+    return r, k, v, w, u, state
+
+
+def check_flash(shapes, dtypes) -> float:
+    """Kernel vs plain version; returns the largest absolute error."""
+    worst = 0.0
+    for dtype in dtypes:
+        for i, shape in enumerate(shapes):
+            q, k, v = flash_operands(shape, dtype, seed=i)
+            scale, window = shape[4] ** -0.5, shape[5]
+            got = causal_attention(q, k, v, scale=scale, window=window)
+            torch.cuda.synchronize()
+            want = causal_attention_plain(q, k, v, scale=scale, window=window)
+            err = float((got.float() - want.float()).abs().max())
+            tol = FLASH_TOL[dtype]
+            ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+            print(f"  flash_attention {str(dtype)[6:]} (B,S,H,KV,hd,window)={shape}: max_abs_err={err:.3e} tol={tol} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"flash_attention disagrees with its plain version at {shape} {dtype}")
+            worst = max(worst, err)
+    return worst
+
+
+def check_wkv6(shapes, dtypes) -> float:
+    """Kernel vs plain version, from a zero and from a random state, output
+    and final state; returns the largest absolute error."""
+    worst = 0.0
+    for dtype in dtypes:
+        for i, shape in enumerate(shapes):
+            for with_state in (False, True):
+                args = wkv_operands(shape, dtype, seed=i, with_state=with_state)
+                out, state = wkv6(*args)
+                torch.cuda.synchronize()
+                want_out, want_state = wkv6_plain(*args)
+                err = max(float((out - want_out).abs().max()), float((state - want_state).abs().max()))
+                ok = torch.allclose(out, want_out, rtol=WKV_TOL, atol=WKV_TOL) and torch.allclose(
+                    state, want_state, rtol=WKV_TOL, atol=WKV_TOL
+                )
+                print(
+                    f"  wkv6 r,k,v {str(dtype)[6:]} (B,T,H,hd)={shape} {'random' if with_state else 'zero'} state: "
+                    f"max_abs_err={err:.3e} (|out| up to {float(want_out.abs().max()):.1f}) tol={WKV_TOL} {'ok' if ok else 'MISMATCH'}"
+                )
+                if not ok:
+                    raise AssertionError(f"wkv6 disagrees with its plain version at {shape} {dtype}")
+                worst = max(worst, err)
+    return worst
+
+
+@contextlib.contextmanager
+def recording_kernel_calls(calls: Counter):
+    """Count each (kernel, shape, dtype) the model path calls its wrappers
+    with.  The wrappers themselves, and their launch counts, are unchanged."""
+    flash, recur = attention.causal_attention, rwkv.wkv6
+
+    def flash_rec(q, k, v, *, scale, window=0):
+        calls["flash_attention", (*q.shape[:3], k.shape[2], q.shape[3], window), q.dtype] += 1
+        return flash(q, k, v, scale=scale, window=window)
+
+    def wkv_rec(r, k, v, w, u, state=None):
+        calls["wkv6", tuple(r.shape), r.dtype] += 1
+        return recur(r, k, v, w, u, state)
+
+    attention.causal_attention, rwkv.wkv6 = flash_rec, wkv_rec
+    try:
+        yield
+    finally:
+        attention.causal_attention, rwkv.wkv6 = flash, recur
+
+
+def launch_counts() -> dict[str, int]:
+    return {k["name"]: k["wrapper"].launches for k in KERNELS}
+
+
+def serve_prompts(cfg, params, tokens, timed: bool):
+    """prefill_step on ``tokens``, then ZOO_DECODE greedy decode_steps.
+    Returns (launches after prefill, launches after decode, all logits
+    finite, prefill ms, decode ms per token); the times are CUDA events
+    when ``timed``."""
+    max_len = tokens.shape[1] + ZOO_DECODE
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    torch.cuda.synchronize()
+    start.record()
+    logits, caches = tf.prefill_step(cfg, params, {"tokens": tokens}, max_len)
+    mid.record()
+    after_prefill = launch_counts()
+    finite = torch.isfinite(logits).all()
+    for i in range(ZOO_DECODE):
+        nxt = logits[:, -1].argmax(dim=-1, keepdim=True)
+        logits, caches = tf.decode_step(cfg, params, caches, nxt, tokens.shape[1] + i)
+        finite &= torch.isfinite(logits).all()
+    end.record()
+    end.synchronize()
+    prefill_ms = start.elapsed_time(mid) if timed else float("nan")
+    decode_ms = mid.elapsed_time(end) / ZOO_DECODE if timed else float("nan")
+    return after_prefill, launch_counts(), bool(finite), prefill_ms, decode_ms
+
+
+def device_breakdown(label: str, fn) -> None:
+    """Device time by kernel over one call of ``fn`` (torch.profiler), and the
+    share of the wall time in which the device was busy.  The profiler's own
+    host overhead lengthens the wall time, so that share is a lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(
+        (
+            (e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+        ),
+        reverse=True,
+    )
+    busy = sum(t for t, _, _ in kernels)
+    if busy <= 0:
+        print(f"  {label}: the profiler saw no device time (busy share not measured)")
+        return
+    print(
+        f"  {label}: device busy {busy:.3f} ms of {wall_ms:.3f} ms wall under the profiler "
+        f"({busy / wall_ms:.2%}); device time by kernel:"
+    )
+    for t, n, key in kernels[:8]:
+        print(f"    {t:10.3f} ms {t / busy:8.2%}  x{n:<6} {key[:100]}")
+
+
+def phase_zoo_path(name: str, calls: Counter) -> dict[str, int]:
+    """Serve ZOO_BATCH prompts of ZOO_PROMPT tokens of ``name`` in bfloat16
+    at full width and depth; returns each kernel's launches in one prefill
+    and decode."""
+    cfg = ARCHS[name]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+    tokens = torch.randint(
+        0, cfg.vocab_size, (ZOO_BATCH, ZOO_PROMPT), device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(1),
+    )
+    print(
+        f"{name}: {tf.count_params(cfg) / 1e9:.3f} B parameters in bfloat16, "
+        f"init {time.perf_counter() - t0:.2f} s"
+    )
+    for k in KERNELS:
+        k["wrapper"].launches = 0
+    with recording_kernel_calls(calls):
+        after_prefill, after_decode, finite, _, _ = serve_prompts(cfg, params, tokens, timed=False)
+    want = {
+        "block_matmul": 0,
+        "flash_attention": cfg.n_layers if cfg.block == "transformer" else 0,
+        "wkv6": cfg.n_layers if cfg.block == "rwkv6" else 0,
+    }
+    print(f"  launches: after prefill {after_prefill}, after {ZOO_DECODE} decode steps {after_decode}")
+    assert after_prefill == after_decode == want, (after_prefill, after_decode, want)
+    assert finite, f"{name}: non-finite logits"
+    _, _, finite, prefill_ms, decode_ms = serve_prompts(cfg, params, tokens, timed=True)
+    assert finite, f"{name}: non-finite logits"
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    max_len = ZOO_PROMPT + ZOO_DECODE
+    device_breakdown("one prefill", lambda: tf.prefill_step(cfg, params, {"tokens": tokens}, max_len))
+    logits, caches = tf.prefill_step(cfg, params, {"tokens": tokens}, max_len)
+    nxt = logits[:, -1].argmax(dim=-1, keepdim=True)
+
+    def decode_steps():
+        for i in range(ZOO_PROFILE_DECODE):
+            tf.decode_step(cfg, params, caches, nxt, ZOO_PROMPT + i)
+
+    device_breakdown(f"{ZOO_PROFILE_DECODE} decode steps", decode_steps)
+    del logits, caches
+    full = INPUT_SHAPES["prefill_32k"]
+    print(
+        f"  warm: prefill of {ZOO_BATCH} x {ZOO_PROMPT} tokens {prefill_ms:.3f} ms, "
+        f"decode {decode_ms:.3f} ms per step of {ZOO_BATCH} tokens, all logits finite, "
+        f"peak memory {peak:.2f} GiB (batch and length cut from {full.name}'s "
+        f"{full.global_batch} x {full.seq_len}); {time.perf_counter() - t0:.2f} s"
+    )
+    del params
+    torch.cuda.empty_cache()
+    return {k: v for k, v in after_decode.items() if v}
+
+
+def phase_zoo_check(name: str) -> None:
+    """float32 at full width and depth: the full forward of T tokens
+    (kernels on every layer) against prefill_step of the first
+    ZOO_CHECK_PREFILL tokens plus teacher-forced decode_steps, which launch
+    no hand kernel; logits within ZOO_CHECK_TOL and the same argmax at
+    every position."""
+    cfg, t_len = ARCHS[name], ZOO_CHECK_LEN[name]
+    t0 = time.perf_counter()
+    params = tf.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(2), device=DEVICE, dtype=torch.float32
+    )
+    tokens = torch.randint(
+        0, cfg.vocab_size, (1, t_len), device=DEVICE, generator=torch.Generator(device=DEVICE).manual_seed(3)
+    )
+    full = tf.unembed(cfg, params, tf.backbone(cfg, params, tf.embed_inputs(cfg, params, {"tokens": tokens})))[0]
+    errs = torch.zeros(t_len, device=DEVICE)
+    excess = torch.zeros(t_len, device=DEVICE)       # max(|a - b| - tol * |b|) per position
+    agree = torch.zeros(t_len, dtype=torch.bool, device=DEVICE)
+    gap = torch.zeros(t_len, device=DEVICE)          # top-2 gap of the full forward's logits
+
+    def compare(t, logits):
+        want = full[t]
+        d = (logits - want).abs()
+        errs[t] = d.max()
+        excess[t] = (d - ZOO_CHECK_TOL * want.abs()).max()
+        agree[t] = logits.argmax() == want.argmax()
+        top2 = want.topk(2).values
+        gap[t] = top2[0] - top2[1]
+
+    p = ZOO_CHECK_PREFILL
+    logits, caches = tf.prefill_step(cfg, params, {"tokens": tokens[:, :p]}, max_len=t_len)
+    compare(p - 1, logits[0, 0])
+    for t in range(p, t_len):
+        logits, caches = tf.decode_step(cfg, params, caches, tokens[:, t : t + 1], t)
+        compare(t, logits[0, 0])
+    span = slice(p - 1, t_len)
+    worst, worst_excess = float(errs[span].max()), float(excess[span].max())
+    n_agree, n = int(agree[span].sum()), t_len - p + 1
+    print(
+        f"{name} float32, {t_len} tokens: full forward vs prefill of {p} + {t_len - p} decode steps: "
+        f"max_abs_err={worst:.3e} (|logit| up to {float(full.abs().max()):.2f}), tol {ZOO_CHECK_TOL} abs + rel, "
+        f"argmax agrees at {n_agree}/{n} positions (smallest top-2 gap {float(gap[span].min()):.3e}); "
+        f"{time.perf_counter() - t0:.2f} s"
+    )
+    if worst_excess > ZOO_CHECK_TOL or n_agree != n:
+        raise AssertionError(f"{name}: prefill + decode disagrees with the full forward")
+    del params, full, caches
+    torch.cuda.empty_cache()
+
+
+def flash_bound(key, dtype) -> tuple[float, str]:
+    """Least time (ms): q, k, v read and out written once at the memory
+    rate, or 4 * hd operations per unmasked (query, key) pair and head (the
+    two products) at the peak rate of the type, whichever is longer."""
+    b, s, h, kv, hd, window = key
+    size = torch.empty((), dtype=dtype).element_size()
+    t_bytes = (2 * b * s * h * hd + 2 * b * s * kv * hd) * size / HBM_BYTES_PER_S * 1e3
+    w = window if window > 0 else s
+    pairs = sum(min(i + 1, w) for i in range(s))
+    t_ops = 4.0 * hd * pairs * b * h / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def wkv_bound(key, dtype) -> tuple[float, str]:
+    """Least time (ms): r, k, v (``dtype``), w, u, the initial state read
+    and out and the final state (float32) written once at the memory rate,
+    or 5 * hd^2 operations per token and head (r^T S, k v^T, diag(w) S + kv)
+    at the peak rate of r, k, v's type, whichever is longer."""
+    b, t, h, hd = key
+    size = torch.empty((), dtype=dtype).element_size()
+    n = b * t * h * hd
+    t_bytes = (3 * n * size + n * 4 + h * hd * 4 + 2 * b * h * hd * hd * 4 + n * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = 5.0 * hd * hd * b * t * h / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_call(q, k, v, scale, window):
+    """The library yardstick: one F.scaled_dot_product_attention call on the
+    same inputs (heads-first views, GQA by enable_gqa; the causal flag for
+    global layers, a boolean mask, made once, for windowed ones)."""
+    qh, kh, vh = (a.transpose(1, 2) for a in (q, k, v))
+    if window <= 0:
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=scale, enable_gqa=True)
+    pos = torch.arange(q.shape[1], device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=scale, enable_gqa=True)
+
+
+def phase_zoo_times(calls: Counter) -> dict[str, dict]:
+    """Times of flash_attention and wkv6 at each shape their path called
+    them with; the totals over one prefill (each shape times its calls) are
+    the kernels line's numbers."""
+    totals = {}
+    for name in ("flash_attention", "wkv6"):
+        rows = [(key, dtype, n) for (kname, key, dtype), n in calls.items() if kname == name]
+        tot = Counter()
+        by_bytes = 0.0
+        print(f"times of {name} (ms per call, CUDA events) at its model-zoo path's shapes:")
+        for key, dtype, n in rows:
+            if name == "flash_attention":
+                q, k, v = flash_operands(key, dtype, seed=0)
+                scale, window = key[4] ** -0.5, key[5]
+                fn = lambda: causal_attention(q, k, v, scale=scale, window=window)  # noqa: E731
+                plain = lambda: causal_attention_plain(q, k, v, scale=scale, window=window)  # noqa: E731
+                lib = sdpa_call(q, k, v, scale, window)
+                lib_err = float((lib().transpose(1, 2).float() - fn().float()).abs().max())
+                bound_ms, bound_by = flash_bound(key, dtype)
+                label = f"(B,S,H,KV,hd,window)={key}"
+            else:
+                args = wkv_operands(key, dtype, seed=0, with_state=False)
+                fn = lambda: wkv6(*args)  # noqa: E731
+                plain = lambda: wkv6_plain(*args)  # noqa: E731
+                lib = None
+                bound_ms, bound_by = wkv_bound(key, dtype)
+                label = f"(B,T,H,hd)={key}"
+            t = {
+                "ms": time_ms(fn, 20),
+                "graph_ms": time_graph_ms(fn, calls=10, replays=5),
+                "plain_ms": time_ms(plain, 2, warmup=1),
+                "library_ms": time_ms(lib, 20) if lib else None,
+                "library_graph_ms": time_graph_ms(lib, calls=10, replays=5) if lib else None,
+                "bound_ms": bound_ms,
+            }
+            print(
+                f"  {str(dtype)[6:]} {label}, {n} calls per prefill: kernel={t['ms']:.6f} "
+                f"graph={t['graph_ms']:.6f} plain={t['plain_ms']:.6f} "
+                + (f"sdpa={t['library_ms']:.6f} sdpa_graph={t['library_graph_ms']:.6f} "
+                   f"(max |sdpa - kernel| {lib_err:.3e}) " if lib else "library=none ")
+                + f"bound={bound_ms:.6f} ({bound_by}) share={bound_ms / t['ms']:.4%} "
+                f"graph share={bound_ms / t['graph_ms']:.4%}"
+            )
+            for key2, val in t.items():
+                if val is not None:
+                    tot[key2] += n * val
+            if bound_by == "bytes":
+                by_bytes += n * bound_ms
+        out = {
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": "bytes" if by_bytes >= tot["bound_ms"] / 2 else "operations",
+            "library_ms": tot["library_ms"] if name == "flash_attention" else None,
+            "graph_ms": tot["graph_ms"],
+            "library_graph_ms": tot["library_graph_ms"] if name == "flash_attention" else None,
+        }
+        print(f"  one prefill ({sum(n for _, _, n in rows)} calls): " + ", ".join(
+            f"{k2}={v2:.6f}" if isinstance(v2, float) else f"{k2}={v2}" for k2, v2 in out.items()
+        ))
+        totals[name] = out
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
-    kind = phase_device()
-    phase_build()
-    print("kernel vs plain version on the card:")
-    checks = {k["name"]: phase_kernel_vs_plain(k) for k in KERNELS}
-    plan, launches = phase_main_path()
-    phase_breakdown(plan)
-    times = {k["name"]: phase_times(k) for k in KERNELS}
+    def phase(title, fn, *args):
+        t0 = time.perf_counter()
+        print(f"== {title}")
+        result = fn(*args)
+        print(f"== {title}: {time.perf_counter() - t0:.2f} s")
+        return result
+
+    kind = phase("device", phase_device)
+    phase("build", phase_build)
+    matmul_k, flash_k, wkv_k = KERNELS
+    checks = {"block_matmul": phase("kernel vs plain: block_matmul", phase_kernel_vs_plain, matmul_k)}
+    phase("kernel vs plain: flash_attention, test and ragged shapes", check_flash,
+          FLASH_TEST_SHAPES + FLASH_RAGGED_SHAPES, (torch.float32, torch.bfloat16))
+    phase("kernel vs plain: wkv6, test and ragged shapes", check_wkv6,
+          WKV_TEST_SHAPES + WKV_RAGGED_SHAPES, (torch.float32, torch.bfloat16))
+    plan, cnn_launches = phase("main path: SwapLess serving of the CNN mix", phase_main_path)
+    phase("where the time goes", phase_breakdown, plan)
+
+    calls = Counter()
+    launches = {"block_matmul": cnn_launches["block_matmul"]}
+    for name in ZOO:
+        launches.update(phase(f"model-zoo path: {name}", phase_zoo_path, name, calls))
+    print("model-zoo kernel calls per prefill: " + "; ".join(
+        f"{k} {key} {str(dt)[6:]} x{n}" for (k, key, dt), n in calls.items()
+    ))
+    for name, check in (("flash_attention", check_flash), ("wkv6", check_wkv6)):
+        path_shapes = list(dict.fromkeys(key for (k, key, _), _n in calls.items() if k == name))
+        path_dtypes = tuple(dict.fromkeys(dt for (k, _key, dt) in calls if k == name))
+        checks[name] = {"max_abs_err": phase(
+            f"kernel vs plain: {name} at the model-zoo path's shapes", check, path_shapes, path_dtypes
+        )}
+        phase(f"kernel vs plain: {name} at the path's shapes in float32", check, path_shapes, (torch.float32,))
+    for name in ZOO:
+        phase(f"model-zoo correctness: {name} float32", phase_zoo_check, name)
+
+    times = {"block_matmul": phase("times: block_matmul", phase_times, matmul_k)}
+    times.update(phase("times: flash_attention and wkv6", phase_zoo_times, calls))
 
     line = []
     for k in KERNELS:
         name = k["name"]
+        assert launches[name] > 0, f"{name} was not launched on its path"
         line.append({
             "name": name,
             "route": k["route"],
@@ -348,8 +792,9 @@ def main() -> int:
             "launches": launches[name],
             "max_abs_err": checks[name]["max_abs_err"],
             **times[name],
-            "shapes_checked": checks[name]["shapes_checked"],
+            **({"shapes_checked": checks[name]["shapes_checked"]} if "shapes_checked" in checks[name] else {}),
         })
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": line}))
     print(json.dumps({
         "ok": True,

@@ -1,0 +1,121 @@
+"""Causal (optionally sliding-window) attention through the hand-written
+``flash_attention`` CUDA kernel.
+
+Port of the JAX package's ``kernels/ops.py::causal_attention`` over the
+Pallas kernel ``kernels/flash_attention.py::flash_attention``, with
+``causal_attention_plain`` as the counterpart of
+``kernels/ref.py::attention_ref``.  The kernel takes the model's natural
+``(B, S, H, hd)`` layout and reads KV head ``h // (H / KV)`` itself, so
+there is no transposing, head-repeating or padding wrapper and no block-size
+argument.  Positions are ``0 .. S-1`` for queries and keys alike, as on the
+prefill and full-forward paths.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+_DTYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's instantiations
+_MAX_GRID_Y = 65535                  # B * H blocks on gridDim.y
+
+
+@functools.cache
+def _kernel():
+    fn = build.load("flash_attention").flash_attention
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def causal_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float, window: int = 0
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: KV heads repeated, float32
+    scores masked to ``NEG_INF``, softmax in float32, probabilities cast to
+    v's dtype before the product with v; output in q's dtype."""
+    s_len, h = q.shape[1], q.shape[2]
+    rep = h // k.shape[2]
+    k = k.repeat_interleave(rep, dim=2)
+    v = v.repeat_interleave(rep, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    pos = torch.arange(s_len, device=q.device)
+    mask = pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[:, None] - pos[None, :] < window
+    scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"attention takes q (B, S, H, hd) and k, v (B, S, KV, hd), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, s, h, hd = q.shape
+    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != hd:
+        raise ValueError(f"q {tuple(q.shape)} and k, v {tuple(k.shape)} disagree")
+    if k.shape[2] < 1 or h % k.shape[2]:
+        raise ValueError(f"KV heads ({k.shape[2]}) must divide query heads ({h})")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"q, k, v must share float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+
+
+def causal_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float, window: int = 0
+) -> torch.Tensor:
+    """Causal GQA attention: q (B, S, H, hd), k and v (B, S, KV, hd) with KV
+    dividing H; ``window`` > 0 keeps the last ``window`` keys of each query.
+    Returns (B, S, H, hd) in q's dtype.
+
+    On CUDA tensors (contiguous, float32 or bfloat16, hd in ``HEAD_DIMS``)
+    this launches the ``flash_attention`` kernel on the current stream and
+    raises if it cannot; on CPU tensors it computes
+    ``causal_attention_plain``.  ``causal_attention.launches`` counts the
+    kernel's launches.
+    """
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return causal_attention_plain(q, k, v, scale=scale, window=window)
+
+    b, s, h, hd = q.shape
+    if s < 1 or b < 1:
+        raise ValueError(f"empty attention input {tuple(q.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS}, got {hd}")
+    if b * h > _MAX_GRID_Y:
+        raise ValueError(f"attention input too large for the kernel: {tuple(q.shape)}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("the flash_attention kernel takes contiguous q, k, v")
+    kernel = _kernel()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = kernel(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, s, h, k.shape[2], hd, scale, int(window), int(q.dtype == torch.bfloat16),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed with CUDA error {err}")
+    causal_attention.launches += 1
+    return out
+
+
+causal_attention.launches = 0

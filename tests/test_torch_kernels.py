@@ -113,6 +113,7 @@ def test_library_path_is_under_the_checkout_build_dir():
     assert path.parent.parent.parent == matmul_mod.build.CSRC_DIR.parents[3]
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain_version(dtype):
     if not torch.cuda.is_available():

@@ -8,10 +8,14 @@ and prints no result line):
 
 1. device: the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build: every CUDA source of the port (``src/repro_torch/kernels/csrc``),
-   compiled in parallel from the checkout into ``build/repro_torch``;
+   compiled in parallel from the checkout into ``build/repro_torch``, with
+   each kernel's registers and spills; then the count of tensor-core
+   instructions (``HGMMA``) in the flash_attention library's SASS, which
+   must not be 0;
 3. kernel vs plain: each kernel's wrapper on the card at the reference's
    test shapes and ragged ones (``block_matmul`` also at the serving path's
-   shapes), held against its plain PyTorch version;
+   shapes), held against its plain PyTorch version; flash_attention prints
+   the route (tensor-core or CUDA-core kernel) of each shape;
 4. main path: ``repro_torch.launch.serve`` serving inceptionv4 + mnasnet
    through the GPU-prefix / host-suffix engine, under the SwapLess plan and
    under a forced split, with every output held against a host-only forward
@@ -38,7 +42,11 @@ result when no CUDA device is present.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -55,7 +63,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import ARCHS, INPUT_SHAPES  # noqa: E402
 from repro_torch.core.planner import Plan  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.flash_attention import causal_attention, causal_attention_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import causal_attention, causal_attention_plain, route  # noqa: E402
 from repro_torch.kernels.matmul import matmul, matmul_plain  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6, wkv6_plain  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -151,8 +159,49 @@ def phase_build() -> None:
     for path in paths:
         print(f"  {path.relative_to(ROOT)}")
         for line in path.with_name(path.name + ".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
+
+
+def find_cuobjdump() -> str | None:
+    """``cuobjdump`` from PATH, the CUDA toolkit, or Triton's own copy."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    dirs = [Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"]
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.submodule_search_locations:
+        dirs.append(Path(spec.submodule_search_locations[0]) / "backends" / "nvidia" / "bin")
+    for d in dirs:
+        if (d / "cuobjdump").exists():
+            return str(d / "cuobjdump")
+    return None
+
+
+def phase_tensor_cores() -> int:
+    """Count the tensor-core instructions (HGMMA, Hopper's wgmma) in each
+    kernel of the flash_attention library's SASS; fails when there are none
+    or when no ``cuobjdump`` is found."""
+    tool = find_cuobjdump()
+    if tool is None:
+        raise RuntimeError("cuobjdump is not available: the tensor-core route cannot be shown")
+    lib = build.library_path("flash_attention")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, name = Counter(), None
+    for line in sass.splitlines():
+        header = re.match(r"\s*Function : (\S+)", line)
+        if header:
+            name = header.group(1)
+            counts[name] += 0
+        elif name and re.search(r"\bHGMMA\b", line):
+            counts[name] += 1
+    print(f"SASS of {lib.relative_to(ROOT)} ({tool}): HGMMA instructions per kernel")
+    for fn_name, n in counts.items():
+        print(f"  {n:5d}  {fn_name}")
+    total = sum(counts.values())
+    if total == 0:
+        raise AssertionError("no HGMMA instruction in the flash_attention library: the tensor-core route is missing")
+    return total
 
 
 def phase_kernel_vs_plain(kernel: dict) -> dict:
@@ -376,6 +425,7 @@ FLASH_TEST_SHAPES = [
 FLASH_RAGGED_SHAPES = [
     (1, 1, 2, 2, 16, 0), (1, 37, 4, 2, 32, 0), (2, 37, 2, 1, 64, 5),
     (1, 100, 2, 1, 128, 0), (2, 600, 4, 1, 256, 512), (1, 1000, 16, 16, 64, 0),
+    (1, 33, 4, 1, 256, 0), (2, 2047, 4, 1, 256, 512),
 ]
 # (B, T, H, hd): TestWKV6's shapes and property-sweep sample, and ragged ones.
 WKV_TEST_SHAPES = [(1, 64, 2, 16), (2, 32, 2, 8), (1, 16, 1, 8), (1, 128, 4, 32)]
@@ -416,7 +466,10 @@ def check_flash(shapes, dtypes) -> float:
             err = float((got.float() - want.float()).abs().max())
             tol = FLASH_TOL[dtype]
             ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-            print(f"  flash_attention {str(dtype)[6:]} (B,S,H,KV,hd,window)={shape}: max_abs_err={err:.3e} tol={tol} {'ok' if ok else 'MISMATCH'}")
+            print(
+                f"  flash_attention {str(dtype)[6:]} (B,S,H,KV,hd,window)={shape} {route(dtype, shape[4])}: "
+                f"max_abs_err={err:.3e} tol={tol} {'ok' if ok else 'MISMATCH'}"
+            )
             if not ok:
                 raise AssertionError(f"flash_attention disagrees with its plain version at {shape} {dtype}")
             worst = max(worst, err)
@@ -751,6 +804,7 @@ def main() -> int:
 
     kind = phase("device", phase_device)
     phase("build", phase_build)
+    hgmma = phase("tensor cores: HGMMA in the flash_attention library", phase_tensor_cores)
     matmul_k, flash_k, wkv_k = KERNELS
     checks = {"block_matmul": phase("kernel vs plain: block_matmul", phase_kernel_vs_plain, matmul_k)}
     phase("kernel vs plain: flash_attention, test and ragged shapes", check_flash,
@@ -793,6 +847,7 @@ def main() -> int:
             "max_abs_err": checks[name]["max_abs_err"],
             **times[name],
             **({"shapes_checked": checks[name]["shapes_checked"]} if "shapes_checked" in checks[name] else {}),
+            **({"sass_hgmma": hgmma} if name == "flash_attention" else {}),
         })
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": line}))

@@ -18,35 +18,86 @@
 // contiguous: the natural layout of the model, so no transposed or
 // head-repeated copies are made.  A block reads KV head h / G directly.
 //
-// Block structure.  The TPU kernel carries (m, l, acc) across a sequential
-// KV grid axis in VMEM.  Here blocks run in parallel and in no order, so one
-// block owns one (batch*head, 64-query tile) and walks the KV tiles in a loop
-// of its own, with m and l in shared memory and the accumulator in registers.
-// Query tiles are issued heaviest first (the last tile of a causal row sees
-// the most keys).  KV tiles that lie wholly outside the causal window of the
-// query tile are skipped: the masked scores they would add carry weight
-// exp(NEG_INF - m) = 0 once any real score is seen, and the diagonal tile,
-// always processed, holds one for every row, so the function is unchanged.
-// A row whose first processed tile is all masked gets m = NEG_INF and
-// p = exp(0) = 1 there; the correction exp(m_prev - m_new) = 0 wipes that
-// when a real score arrives.  NEG_INF is finite (-1e30), as in the
-// reference: -inf would make exp(-inf - -inf) NaN.  l is guarded by
-// max(l, 1e-30) before the division.  Ragged S is masked inside the kernel.
+// Two routes, fixed by type and head size (kernels/flash_attention.py::route
+// mirrors this dispatch; neither gives way to the other at run time):
+//
+//   bfloat16, hd in {64, 128, 256}  -> tensor-core kernel (tc::flash_kernel)
+//   bfloat16, hd in {16, 32}; every float32 shape -> CUDA-core kernel
+//                                                    (flash_kernel)
+//
+// float32 stays off the tensor cores: there they would compute in TF32,
+// which breaks the float32 tolerances.  hd 16 and 32 occur in tests only.
 //
 // What bounds it.  On the serving path (gemma3-1b: B = 2, S = 2048, H = 4,
 // KV = 1, hd = 256, bfloat16) one global layer needs about 17 GFLOP of
-// unmasked work and moves about 10 MB, so it is bound by operations.  This
-// first version computes both products with float32 FMAs on the CUDA cores
-// (a 4x2 or 4x4 register micro-tile per thread for the scores, a 4x(hd/16)
-// micro-tile for the output, operands staged in shared memory as float32
-// with rows padded by one element so that neither product has bank
-// conflicts), so it is bound by the CUDA cores' 67 TFLOP/s, not the tensor
-// cores' 989.  wgmma on bfloat16 tiles, TMA and a pipelined ring of KV
-// tiles are for a later version.
+// unmasked work and moves about 10 MB, so it is bound by operations: the
+// tensor cores' 989 TFLOP/s in bfloat16, the CUDA cores' 67 TFLOP/s in
+// float32.
+//
+// Both kernels share the block structure.  The TPU kernel carries
+// (m, l, acc) across a sequential KV grid axis in VMEM.  Here blocks run in
+// parallel and in no order, so one block owns one (batch*head, 64-query
+// tile) and walks the KV tiles in a loop of its own.  Query tiles are issued
+// heaviest first (the last tile of a causal row sees the most keys).  KV
+// tiles that lie wholly outside the causal window of the query tile are
+// skipped: the masked scores they would add carry weight exp(NEG_INF - m) = 0
+// once any real score is seen, and the diagonal tile, always processed,
+// holds one for every row, so the function is unchanged.  A row whose first
+// processed tile is all masked gets m = NEG_INF and p = exp(0) = 1 there; the
+// correction exp(m_prev - m_new) = 0 wipes that when a real score arrives.
+// NEG_INF is finite (-1e30), as in the reference: -inf would make
+// exp(-inf - -inf) NaN.  l is guarded by max(l, 1e-30) before the division.
+// Ragged S is masked inside the kernel and rows past S are not stored.
+//
+// The CUDA-core kernel computes both products with float32 FMAs (a 4x2 or
+// 4x4 register micro-tile per thread for the scores, a 4x(hd/16) micro-tile
+// for the output, operands staged in shared memory as float32 with rows
+// padded by one element so that neither product has bank conflicts), with m
+// and l in shared memory and the accumulator in registers.
+//
+// The tensor-core kernel runs both products on Hopper's tensor cores with
+// wgmma (sm_90a).  One warpgroup (128 threads) owns 64 query rows.
+//  - Shared memory holds the q tile once and a two-stage ring of (k, v)
+//    tiles of 64 keys (32 at hd 256, see kv_tile), loaded with 16-byte
+//    cp.async copies (rows past S zero-filled) while the previous tile is
+//    computed.  Every tile is stored in wgmma's canonical 128-byte-swizzle
+//    layout: 64-column (128-byte) panels of 8-row, 1024-byte atoms, the
+//    16-byte chunk c of row r at chunk c ^ (r % 8), from a 1024-byte-aligned
+//    base.  At hd 256 that is 32 KB + 2 x (16 + 16) KB = 96 KB, two blocks
+//    per SM; at hd 128, 80 KB.
+//  - S = q k^T is wgmma m64n64k16 (m64n32k16 at hd 256) with both operands
+//    in shared memory over hd / 16 steps; k stored [key][d] is already
+//    K-major, so no transpose.
+//  - The online softmax works on the accumulator fragment itself: thread t
+//    of warp w holds rows 16 w + t / 4 and + 8, columns 8 j + 2 (t % 4) and
+//    + 1.  Row maxima take two __shfl_xor_sync steps within the quad of
+//    threads that share a row; m stays in registers, and l is kept as a
+//    per-thread partial sum, reduced across the quad once at the end.  The
+//    softmax runs in base 2 (scores times scale * log2 e, then exp2).
+//  - O += P v takes P from registers: the S fragment, rounded to packed
+//    bfloat16, is wgmma's A-register layout for k16 (as in FlashAttention-3).
+//    That rounding is the TPU kernel's cast of p to v's type; l sums p
+//    before it.  v stored [key][d] is MN-major for B, which bfloat16 wgmma
+//    reads with its transpose bit, so there is no transposed copy.  One
+//    m64n64k16 per 64-column panel of v keeps each B operand inside one
+//    swizzle atom along N, so only the stride between 8-key groups matters.
+//  - Generic-proxy writes (cp.async) are ordered before the async proxy's
+//    reads (wgmma) by fence.proxy.async and a barrier.
+//  - GQA packing (the query heads of one KV head stacked into the 64 rows)
+//    was weighed and not taken: at the path's shapes a (batch, KV head)'s
+//    keys and values (2 MB) stay in L2, so it would save L2 traffic only,
+//    while it would cut each tile to 16 query positions and the grid is the
+//    same 256 blocks either way.
+// wgmma on the tensor cores, not TMA or warp specialisation, is what this
+// version is about; a producer warp, persistent blocks and overlapping one
+// tile's softmax with the next tile's products are left for a later one.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
+#include <cstdint>
+#include <initializer_list>
 
 namespace {
 
@@ -255,26 +306,33 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Allows `kernel` `bytes` of dynamic shared memory (needed above 48 KB) once
+// per device, at the first launch, so that a launch captured into a CUDA
+// graph makes no call but the launch itself.  `configured` has bit d set once
+// done on device d.
+cudaError_t allow_dynamic_smem(const void* kernel, size_t bytes, unsigned& configured) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 32) return cudaErrorInvalidDevice;
+  if (!(configured & (1u << dev))) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    configured |= 1u << dev;
+  }
+  return cudaSuccess;
+}
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int s, int h, int kv, float scale, int window,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
-  // Above 48 KB a block's shared memory must be allowed explicitly, once
-  // per device; done at the first launch, so that a launch captured into a
-  // CUDA graph makes no call but the launch itself.
-  static unsigned configured = 0;   // bit d: done on device d
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static unsigned configured = 0;
+  cudaError_t err = allow_dynamic_smem(reinterpret_cast<const void*>(flash_kernel<T, HD>),
+                                       smem, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 32) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!(configured & (1u << dev))) {
-    err = cudaFuncSetAttribute(flash_kernel<T, HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured |= 1u << dev;
-  }
   const dim3 grid((s + BQ - 1) / BQ, b * h);
   flash_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -296,20 +354,368 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core route: bfloat16, hd in {64, 128, 256}.  See the note at the top.
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int THREADS = 128;   // one warpgroup
+constexpr int BQ = 64;         // query rows per block: wgmma's M
+constexpr int PANEL = 64;      // bfloat16 columns in a 128-byte swizzle panel
+constexpr int ATOM = 1024;     // bytes in one 8-row swizzle atom
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Keys per KV tile: N of q k^T, K of P v.  At hd 256 a 64-key tile needs
+// more than the 255 registers a thread may have (the output fragment alone
+// is 128) and spills; 32 keys fit, and halve the ring, so that two blocks
+// share an SM and one's softmax overlaps the other's products.
+template <int HD>
+constexpr int kv_tile() { return HD == 256 ? 32 : 64; }
+
+template <int HD>
+struct Smem {
+  static constexpr int BK = kv_tile<HD>();
+  static constexpr int Q = BQ * HD * 2;        // bytes of the q tile
+  static constexpr int KV = BK * HD * 2;       // bytes of a k or a v tile
+  static constexpr int STAGE = 2 * KV;         // k then v
+  static constexpr size_t BYTES = Q + 2 * STAGE + ATOM;   // + alignment slack
+};
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Copies rows [row0, row0 + ROWS) of an (S, HD) bfloat16 matrix whose rows
+// lie `stride` elements apart into the tile at shared address `dst`: one
+// 64-column panel of ROWS x 128 bytes after another, the 16-byte chunk c of
+// row r at chunk c ^ (r % 8) of its row.  Rows at or past s_len are
+// zero-filled (src-size 0; the source address then points at row 0).
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, size_t stride,
+                                          int row0, int s_len) {
+  constexpr int CHUNKS = HD / 8;   // 16-byte chunks per row
+  static_assert(ROWS * CHUNKS % THREADS == 0, "whole chunks per thread");
+#pragma unroll
+  for (int it = 0; it < ROWS * CHUNKS / THREADS; ++it) {
+    const int idx = static_cast<int>(threadIdx.x) + it * THREADS;
+    const int r = idx / CHUNKS;
+    const int c = idx % CHUNKS;
+    const int g = row0 + r;
+    const bool in = g < s_len;
+    const bf16* from = src + static_cast<size_t>(in ? g : 0) * stride + c * 8;
+    const uint32_t to = dst + (c / 8) * (ROWS * 128) + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(to), "l"(from), "r"(in ? 16 : 0) : "memory");
+  }
+}
+
+// wgmma's shared-memory matrix descriptor with the 128-byte swizzle:
+// start address, leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         1ull << 62;
+}
+
+// Keeps the compiler from moving reads or writes of a register that an
+// asynchronous wgmma owns across the wgmma's issue or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d (64 x N, float32) = a (64 x 16) b (16 x N) [+ d when accumulate], a and
+// b both K-major in shared memory; N is 32 or 64.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int accumulate) {
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+  } else {
+    static_assert(N == 32, "N is 32 or 64");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+}
+
+// d (64 x 64, float32) += a (64 x 16, bfloat16 pairs in registers) b, with b
+// (16 x 64) MN-major in shared memory (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, bf16* __restrict__ o, int s_len, int h_q,
+             int h_kv, float scale, int window) {
+  constexpr int NP = HD / PANEL;   // 64-column panels of q, k, v and the output
+  using S = Smem<HD>;
+  constexpr int BK = S::BK;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_s =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + ATOM - 1) & ~uint32_t(ATOM - 1);
+  const uint32_t ring = q_s + S::Q;   // stage st: k at ring + st * STAGE, v at + KV
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+
+  // Block i takes query tile n_qt - 1 - i / (B * H) of (batch, head)
+  // i % (B * H): every (batch, head)'s heaviest tile first.
+  const int n_qt = (s_len + BQ - 1) / BQ;
+  const int n_bh = gridDim.x / n_qt;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / n_bh) * BQ;
+  const int bh = blockIdx.x % n_bh;
+  const int b = bh / h_q;
+  const int h = bh % h_q;
+  const int hk = h / (h_q / h_kv);
+  const size_t q_stride = static_cast<size_t>(h_q) * HD;    // between tokens
+  const size_t kv_stride = static_cast<size_t>(h_kv) * HD;
+  const bf16* qb = q + static_cast<size_t>(b) * s_len * q_stride + static_cast<size_t>(h) * HD;
+  const bf16* kb = k + static_cast<size_t>(b) * s_len * kv_stride + static_cast<size_t>(hk) * HD;
+  const bf16* vb = v + static_cast<size_t>(b) * s_len * kv_stride + static_cast<size_t>(hk) * HD;
+  bf16* ob = o + static_cast<size_t>(b) * s_len * q_stride + static_cast<size_t>(h) * HD;
+
+  // Keys [k_begin, k_end) hold every unmasked score of this query tile.
+  const int k_end = min(q0 + BQ, s_len);
+  const int k_begin = window > 0 ? (max(0, q0 - window + 1) / BK) * BK : 0;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+
+  load_tile<HD, BQ>(q_s, qb, q_stride, q0, s_len);
+  load_tile<HD, BK>(ring, kb, kv_stride, k_begin, s_len);
+  load_tile<HD, BK>(ring + S::KV, vb, kv_stride, k_begin, s_len);
+  cp_async_commit();
+
+  // This thread's rows of the tile and the first of its columns.
+  const int qp0 = q0 + 16 * warp + lane / 4;
+  const int qp1 = qp0 + 8;
+  const int col = 2 * (lane % 4);
+  const float scale2 = scale * LOG2E;
+
+  float acc[NP][32];   // the output, one m64n64 fragment per panel
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.0f;
+  float sc[BK / 2];    // scores, then probabilities, of one tile
+  float m0 = NEG_INF, m1 = NEG_INF;   // running max of rows qp0, qp1 (base 2)
+  float l0 = 0.0f, l1 = 0.0f;         // this thread's part of their sums
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_begin + t * BK;
+    const uint32_t ks = ring + (t & 1) * S::STAGE;
+    const uint32_t vs = ks + S::KV;
+    if (t + 1 < n_tiles) {   // the next tile into the other stage
+      const uint32_t next = ring + ((t + 1) & 1) * S::STAGE;
+      load_tile<HD, BK>(next, kb, kv_stride, k0 + BK, s_len);
+      load_tile<HD, BK>(next + S::KV, vb, kv_stride, k0 + BK, s_len);
+    }
+    cp_async_commit();   // empty on the last tile, so that one group stays behind
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();     // q and this tile's k, v have landed, from every thread
+
+    // S = q k^T over hd / 16 steps of 16: a step's 32 bytes lie inside one
+    // 128-byte panel row, so the descriptors advance by 32 bytes within a
+    // panel and by a whole panel every 4 steps.
+    // The first step overwrites sc; zeroing it here, and not carrying the
+    // last tile's probabilities into the wgmma, keeps them from staying live
+    // in registers across P v.
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t step = (kk % 4) * 32;
+      wgmma_ss<BK>(sc, smem_desc(q_s + (kk / 4) * (BQ * 128) + step, 16, ATOM),
+               smem_desc(ks + (kk / 4) * (BK * 128) + step, 16, ATOM), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // Scale to base 2 and mask: causal, window, keys past S.
+    const bool need_mask = k0 + BK - 1 > q0 || k0 + BK > s_len ||
+                           (window > 0 && q0 + BQ - 1 - k0 >= window);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      float x = sc[i] * scale2;
+      if (need_mask) {
+        const int kp = k0 + 8 * (i / 4) + col + (i % 2);
+        const int qp = (i / 2) % 2 ? qp1 : qp0;
+        const bool keep = kp <= qp && kp < s_len && (window <= 0 || qp - kp < window);
+        x = keep ? x : NEG_INF;
+      }
+      sc[i] = x;
+    }
+
+    // Online softmax of rows qp0 (i % 4 in {0, 1}) and qp1 (i % 4 in {2, 3});
+    // the four threads of a quad share a row.
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      if ((i / 2) % 2) mx1 = fmaxf(mx1, sc[i]);
+      else mx0 = fmaxf(mx0, sc[i]);
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off *= 2) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0);
+    const float mn1 = fmaxf(m1, mx1);
+    const float corr0 = exp2f(m0 - mn0);
+    const float corr1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      if ((i / 2) % 2) {
+        sc[i] = exp2f(sc[i] - mn1);
+        sum1 += sc[i];
+      } else {
+        sc[i] = exp2f(sc[i] - mn0);
+        sum0 += sc[i];
+      }
+    }
+    l0 = l0 * corr0 + sum0;
+    l1 = l1 * corr1 + sum1;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[p][i] *= (i / 2) % 2 ? corr1 : corr0;
+
+    // P as wgmma's A fragment for keys [16 kk, 16 kk + 16): the score
+    // fragment's columns 16 kk .. 16 kk + 15 are its registers 8 kk .. 8 kk + 7.
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+
+    // O += P v: per 16-key step, one m64n64k16 per 64-column panel of v.
+    // Within a panel an 8-key atom is 1024 bytes; the next 8 keys lie one
+    // atom on, which both offsets name (a panel spans one atom along N).
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        wgmma_rs(acc[p], pa[kk], smem_desc(vs + p * (BK * 128) + kk * 16 * 128, ATOM, ATOM));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) fence_regs(acc[p]);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+    __syncthreads();   // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off *= 2) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.0f / fmaxf(l0, 1e-30f);
+  const float inv1 = 1.0f / fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = p * PANEL + 8 * j + col;
+      if (qp0 < s_len)
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(qp0) * q_stride + c) =
+            __floats2bfloat162_rn(acc[p][4 * j] * inv0, acc[p][4 * j + 1] * inv0);
+      if (qp1 < s_len)
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(qp1) * q_stride + c) =
+            __floats2bfloat162_rn(acc[p][4 * j + 2] * inv1, acc[p][4 * j + 3] * inv1);
+    }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int b, int s, int h,
+           int kv, float scale, int window, cudaStream_t stream) {
+  // cp.async copies 16-byte chunks: rows are hd * 2 bytes apart, so the
+  // bases must be 16-byte aligned (the wrapper checks this too).
+  for (const void* ptr : {q, k, v, static_cast<const void*>(o)})
+    if (reinterpret_cast<uintptr_t>(ptr) % 16) return static_cast<int>(cudaErrorMisalignedAddress);
+  const long long blocks = static_cast<long long>((s + BQ - 1) / BQ) * b * h;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = Smem<HD>::BYTES;
+  static unsigned configured = 0;
+  cudaError_t err = allow_dynamic_smem(reinterpret_cast<const void*>(flash_kernel<HD>),
+                                       smem, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  flash_kernel<HD><<<grid, THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), s, h, kv, scale, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // out (b, s, h, hd) = causal attention of q (b, s, h, hd) over k, v
 // (b, s, kv, hd), all contiguous, with kv dividing h; window > 0 keeps only
 // the last `window` keys of each query.  hd is 16, 32, 64, 128 or 256;
-// is_bf16 picks bfloat16 (1) or float32 (0) for every tensor.  Launches on
-// `stream` without synchronising and returns the CUDA error of the launch
-// (0 when it was accepted).
+// is_bf16 picks bfloat16 (1) or float32 (0) for every tensor.  bfloat16 at
+// hd 64, 128 and 256 takes the tensor-core kernel and needs 16-byte-aligned
+// bases; everything else the CUDA-core kernel.  Launches on `stream` without
+// synchronising and returns the CUDA error of the launch (0 when it was
+// accepted).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int b, int s, int h, int kv, int hd,
                                float scale, int window, int is_bf16,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, b, s, h, kv, hd, scale, window, st);
-  return dispatch<float>(q, k, v, o, b, s, h, kv, hd, scale, window, st);
+  if (!is_bf16) return dispatch<float>(q, k, v, o, b, s, h, kv, hd, scale, window, st);
+  switch (hd) {
+    case 16: return launch<__nv_bfloat16, 16>(q, k, v, o, b, s, h, kv, scale, window, st);
+    case 32: return launch<__nv_bfloat16, 32>(q, k, v, o, b, s, h, kv, scale, window, st);
+    case 64: return tc::launch<64>(q, k, v, o, b, s, h, kv, scale, window, st);
+    case 128: return tc::launch<128>(q, k, v, o, b, s, h, kv, scale, window, st);
+    case 256: return tc::launch<256>(q, k, v, o, b, s, h, kv, scale, window, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

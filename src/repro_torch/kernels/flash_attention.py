@@ -9,6 +9,12 @@ Pallas kernel ``kernels/flash_attention.py::flash_attention``, with
 there is no transposing, head-repeating or padding wrapper and no block-size
 argument.  Positions are ``0 .. S-1`` for queries and keys alike, as on the
 prefill and full-forward paths.
+
+The source holds two kernels, and ``route`` says which one a call takes, as
+the C dispatch does: bfloat16 at head_dim 64, 128 or 256 runs both products
+on the tensor cores (wgmma); bfloat16 at 16 or 32 and every float32 shape
+run float32 FMAs on the CUDA cores (float32 on the tensor cores would be
+TF32).  The routing is fixed; neither kernel stands in for the other.
 """
 from __future__ import annotations
 
@@ -21,8 +27,9 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's instantiations
-_MAX_GRID_Y = 65535                  # B * H blocks on gridDim.y
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiations
+TENSOR_CORE_HEAD_DIMS = (64, 128, 256)   # bfloat16 ones on the tensor cores
+_MAX_GRID_Y = 65535                  # B * H blocks on the CUDA-core kernel's gridDim.y
 
 
 @functools.cache
@@ -58,6 +65,29 @@ def causal_attention_plain(
     return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
 
 
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel a CUDA call of ``dtype`` and ``head_dim`` launches:
+    ``"tensor-core"`` or ``"cuda-core"``, as ``flash_attention.cu``'s
+    dispatch decides."""
+    if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS:
+        return "tensor-core"
+    return "cuda-core"
+
+
+def check_alignment(kernel_route: str, *tensors: torch.Tensor) -> None:
+    """The tensor-core kernel copies 16-byte chunks with ``cp.async``, so it
+    takes only tensors whose data starts on a 16-byte boundary (a view into
+    another tensor may not); raises ``ValueError`` otherwise."""
+    if kernel_route != "tensor-core":
+        return
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"the tensor-core flash_attention kernel takes 16-byte-aligned "
+                f"tensors; got data at {t.data_ptr():#x}"
+            )
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
@@ -84,11 +114,11 @@ def causal_attention(
     dividing H; ``window`` > 0 keeps the last ``window`` keys of each query.
     Returns (B, S, H, hd) in q's dtype.
 
-    On CUDA tensors (contiguous, float32 or bfloat16, hd in ``HEAD_DIMS``)
-    this launches the ``flash_attention`` kernel on the current stream and
-    raises if it cannot; on CPU tensors it computes
-    ``causal_attention_plain``.  ``causal_attention.launches`` counts the
-    kernel's launches.
+    On CUDA tensors (contiguous, float32 or bfloat16, hd in ``HEAD_DIMS``;
+    16-byte-aligned on the tensor-core route) this launches the kernel that
+    ``route`` names on the current stream and raises if it cannot; on CPU
+    tensors it computes ``causal_attention_plain``.
+    ``causal_attention.launches`` counts the launches of either kernel.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -103,6 +133,7 @@ def causal_attention(
         raise ValueError(f"attention input too large for the kernel: {tuple(q.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the flash_attention kernel takes contiguous q, k, v")
+    check_alignment(route(q.dtype, hd), q, k, v)
     kernel = _kernel()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -7,6 +7,8 @@ it.  The hand-written CUDA kernel itself is held against the plain version
 by the test here that needs a card (skipped without one) and by
 ``chip_smoke.py``.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -106,6 +108,46 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(q, k, v, error):
         causal_attention(q, k, v, scale=0.25)
 
 
+@pytest.mark.parametrize("head_dim", fa_mod.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_route_puts_bf16_at_64_128_256_on_the_tensor_cores(dtype, head_dim):
+    want = "tensor-core" if dtype == torch.bfloat16 and head_dim >= 64 else "cuda-core"
+    assert fa_mod.route(dtype, head_dim) == want
+
+
+def test_route_mirrors_the_c_dispatch():
+    """The head dims that ``flash_attention.cu``'s bfloat16 switch sends to
+    ``tc::launch`` are ``TENSOR_CORE_HEAD_DIMS``; float32 never goes there."""
+    src = (fa_mod.build.CSRC_DIR / "flash_attention.cu").read_text()
+    entry = src[src.index('extern "C" int flash_attention('):]
+    bf16_switch = entry[entry.index("switch (hd)"):]
+    tc_dims = tuple(int(d) for d in re.findall(r"case (\d+): return tc::launch<\1>", bf16_switch))
+    assert tc_dims == fa_mod.TENSOR_CORE_HEAD_DIMS
+    assert "if (!is_bf16) return dispatch<float>" in entry
+
+
+def _misaligned(shape, dtype):
+    """A contiguous view whose data starts one element past an aligned base."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_alignment_check_rejects_a_misaligned_view_on_the_tensor_core_route(which):
+    tensors = {name: torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16) for name in "qkv"}
+    tensors[which] = _misaligned((1, 4, 2, 64), torch.bfloat16)
+    assert tensors[which].is_contiguous() and tensors[which].data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fa_mod.check_alignment("tensor-core", *tensors.values())
+    fa_mod.check_alignment("cuda-core", *tensors.values())   # reads element by element
+
+
+def test_alignment_check_takes_aligned_tensors():
+    q = torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16)
+    assert q.data_ptr() % 16 == 0
+    fa_mod.check_alignment("tensor-core", q, q, q)
+
+
 def test_library_path_is_under_the_checkout_build_dir():
     path = fa_mod.build.library_path("flash_attention")
     assert path.parent.parts[-2:] == ("build", "repro_torch")
@@ -120,6 +162,14 @@ def test_cuda_kernel_matches_plain_version(dtype):
         (2, 128, 4, 2, 32, 0), (2, 128, 4, 2, 32, 64), (2, 128, 4, 2, 32, 17),
         (1, 64, 4, 1, 256, 16), (1, 37, 4, 2, 32, 0), (2, 37, 2, 1, 64, 5),
         (1, 1, 2, 2, 16, 0), (1, 100, 2, 1, 128, 0), (2, 600, 4, 1, 256, 512),
+    ]
+    # The tensor-core route's head dims (bfloat16), global and windowed, at
+    # one token, a ragged tile and a ragged length past several tiles.
+    shapes += [
+        (1, s, 4, kv, hd, window)
+        for hd, kv in ((64, 4), (128, 2), (256, 1))
+        for s in (1, 33, 2047)
+        for window in (0, 512)
     ]
     for b, s, h, kv, hd, window in shapes:
         _, (tq, tk, tv) = _inputs(b, s, h, kv, hd, dtype, seed=s)

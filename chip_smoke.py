@@ -10,12 +10,14 @@ and prints no result line):
 2. build: every CUDA source of the port (``src/repro_torch/kernels/csrc``),
    compiled in parallel from the checkout into ``build/repro_torch``, with
    each kernel's registers and spills; then the count of tensor-core
-   instructions (``HGMMA``) in the flash_attention library's SASS, which
-   must not be 0;
+   instructions in the SASS of the flash_attention library (``HGMMA``) and
+   of the wkv6 library (``HMMA``), neither of which may be 0;
 3. kernel vs plain: each kernel's wrapper on the card at the reference's
    test shapes and ragged ones (``block_matmul`` also at the serving path's
-   shapes), held against its plain PyTorch version; flash_attention prints
-   the route (tensor-core or CUDA-core kernel) of each shape;
+   shapes), held against its plain PyTorch version; flash_attention and
+   wkv6 print the route of each shape; wkv6 also at strong decays (|log w|
+   up to 20, a stretch of w = 0, a stretch of w = 1 - 1e-4) at ragged
+   lengths;
 4. main path: ``repro_torch.launch.serve`` serving inceptionv4 + mnasnet
    through the GPU-prefix / host-suffix engine, under the SwapLess plan and
    under a forced split, with every output held against a host-only forward
@@ -26,7 +28,8 @@ and prints no result line):
 6. model-zoo path: ``prefill_step`` of 2 x 2048-token prompts and 32 greedy
    ``decode_step``s of gemma3-1b and then rwkv6-7b, bfloat16, full width
    and depth, each kernel's launches counted and the shapes it was called at
-   recorded; then each new kernel against its plain version at those shapes;
+   recorded; then each new kernel against its plain version at those shapes
+   (wkv6 at mild and strong decays);
 7. model-zoo correctness: float32, full width and depth, the full forward
    (kernels on every layer) against ``prefill_step`` of 16 tokens plus
    teacher-forced ``decode_step``s (which launch no hand kernel);
@@ -44,6 +47,7 @@ from __future__ import annotations
 import contextlib
 import importlib.util
 import json
+import math
 import os
 import re
 import shutil
@@ -65,6 +69,7 @@ from repro_torch.core.planner import Plan  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import causal_attention, causal_attention_plain, route  # noqa: E402
 from repro_torch.kernels.matmul import matmul, matmul_plain  # noqa: E402
+from repro_torch.kernels.wkv6 import route as wkv_route  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6, wkv6_plain  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention, rwkv  # noqa: E402
@@ -178,29 +183,29 @@ def find_cuobjdump() -> str | None:
     return None
 
 
-def phase_tensor_cores() -> int:
-    """Count the tensor-core instructions (HGMMA, Hopper's wgmma) in each
-    kernel of the flash_attention library's SASS; fails when there are none
-    or when no ``cuobjdump`` is found."""
+def phase_tensor_cores(name: str, opcode: str) -> int:
+    """Count the tensor-core instructions (``opcode``: HGMMA for Hopper's
+    wgmma, HMMA for mma.sync) in each kernel of library ``name``'s SASS;
+    fails when there are none or when no ``cuobjdump`` is found."""
     tool = find_cuobjdump()
     if tool is None:
         raise RuntimeError("cuobjdump is not available: the tensor-core route cannot be shown")
-    lib = build.library_path("flash_attention")
+    lib = build.library_path(name)
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True, timeout=300).stdout
-    counts, name = Counter(), None
+    counts, fn = Counter(), None
     for line in sass.splitlines():
         header = re.match(r"\s*Function : (\S+)", line)
         if header:
-            name = header.group(1)
-            counts[name] += 0
-        elif name and re.search(r"\bHGMMA\b", line):
-            counts[name] += 1
-    print(f"SASS of {lib.relative_to(ROOT)} ({tool}): HGMMA instructions per kernel")
+            fn = header.group(1)
+            counts[fn] += 0
+        elif fn and re.search(rf"\b{opcode}\b", line):
+            counts[fn] += 1
+    print(f"SASS of {lib.relative_to(ROOT)} ({tool}): {opcode} instructions per kernel")
     for fn_name, n in counts.items():
         print(f"  {n:5d}  {fn_name}")
     total = sum(counts.values())
     if total == 0:
-        raise AssertionError("no HGMMA instruction in the flash_attention library: the tensor-core route is missing")
+        raise AssertionError(f"no {opcode} instruction in the {name} library: the tensor-core route is missing")
     return total
 
 
@@ -441,13 +446,23 @@ def flash_operands(shape, dtype, seed):
     return q, k, v
 
 
-def wkv_operands(shape, dtype, seed, with_state):
-    """r, k, v in ``dtype``; float32 decays exp(-exp(-2 + noise)) as the
-    model's initialisation gives them; float32 u and initial state."""
+def wkv_operands(shape, dtype, seed, with_state, decays="mild"):
+    """r, k, v in ``dtype``; float32 u and initial state; float32 decays,
+    ``mild``: exp(-exp(-2 + noise)) as the model's initialisation gives them
+    (|log w| about 0.14); ``strong``: exp(-exp(x)) with |log w| from 0.0025
+    up to 20, a stretch of 20 tokens of w = 0 and one of 70 tokens of
+    w = 1 - 1e-4."""
     b, t, h, hd = shape
     g = torch.Generator().manual_seed(seed)
     r, k, v = (torch.randn((b, t, h, hd), generator=g).to(dtype).to(DEVICE) for _ in range(3))
-    w = torch.exp(-torch.exp(-2.0 + 0.5 * torch.randn((b, t, h, hd), generator=g))).to(DEVICE)
+    if decays == "mild":
+        w = torch.exp(-torch.exp(-2.0 + 0.5 * torch.randn((b, t, h, hd), generator=g)))
+    else:
+        x = torch.rand((b, t, h, hd), generator=g) * (math.log(20.0) + 6.0) - 6.0
+        w = torch.exp(-torch.exp(x))
+        w[:, t // 4:t // 4 + 20] = 0.0
+        w[:, t // 2:t // 2 + 70] = 1.0 - 1e-4
+    w = w.to(DEVICE)
     u = (0.1 * torch.randn((h, hd), generator=g)).to(DEVICE)
     state = torch.randn((b, h, hd, hd), generator=g).to(DEVICE) if with_state else None
     return r, k, v, w, u, state
@@ -476,27 +491,29 @@ def check_flash(shapes, dtypes) -> float:
     return worst
 
 
-def check_wkv6(shapes, dtypes) -> float:
+def check_wkv6(shapes, dtypes, decays="mild") -> float:
     """Kernel vs plain version, from a zero and from a random state, output
-    and final state; returns the largest absolute error."""
+    and final state, both finite; returns the largest absolute error."""
     worst = 0.0
     for dtype in dtypes:
         for i, shape in enumerate(shapes):
             for with_state in (False, True):
-                args = wkv_operands(shape, dtype, seed=i, with_state=with_state)
+                args = wkv_operands(shape, dtype, seed=i, with_state=with_state, decays=decays)
                 out, state = wkv6(*args)
                 torch.cuda.synchronize()
                 want_out, want_state = wkv6_plain(*args)
                 err = max(float((out - want_out).abs().max()), float((state - want_state).abs().max()))
-                ok = torch.allclose(out, want_out, rtol=WKV_TOL, atol=WKV_TOL) and torch.allclose(
+                finite = bool(torch.isfinite(out).all() and torch.isfinite(state).all())
+                ok = finite and torch.allclose(out, want_out, rtol=WKV_TOL, atol=WKV_TOL) and torch.allclose(
                     state, want_state, rtol=WKV_TOL, atol=WKV_TOL
                 )
                 print(
-                    f"  wkv6 r,k,v {str(dtype)[6:]} (B,T,H,hd)={shape} {'random' if with_state else 'zero'} state: "
-                    f"max_abs_err={err:.3e} (|out| up to {float(want_out.abs().max()):.1f}) tol={WKV_TOL} {'ok' if ok else 'MISMATCH'}"
+                    f"  wkv6 r,k,v {str(dtype)[6:]} (B,T,H,hd)={shape} {wkv_route(dtype, shape[3])} {decays} decays, "
+                    f"{'random' if with_state else 'zero'} state: max_abs_err={err:.3e} "
+                    f"(|out| up to {float(want_out.abs().max()):.1f}) finite={finite} tol={WKV_TOL} {'ok' if ok else 'MISMATCH'}"
                 )
                 if not ok:
-                    raise AssertionError(f"wkv6 disagrees with its plain version at {shape} {dtype}")
+                    raise AssertionError(f"wkv6 disagrees with its plain version at {shape} {dtype} ({decays} decays)")
                 worst = max(worst, err)
     return worst
 
@@ -751,7 +768,7 @@ def phase_zoo_times(calls: Counter) -> dict[str, dict]:
                 plain = lambda: wkv6_plain(*args)  # noqa: E731
                 lib = None
                 bound_ms, bound_by = wkv_bound(key, dtype)
-                label = f"(B,T,H,hd)={key}"
+                label = f"(B,T,H,hd)={key} {wkv_route(dtype, key[3])}"
             t = {
                 "ms": time_ms(fn, 20),
                 "graph_ms": time_graph_ms(fn, calls=10, replays=5),
@@ -804,13 +821,16 @@ def main() -> int:
 
     kind = phase("device", phase_device)
     phase("build", phase_build)
-    hgmma = phase("tensor cores: HGMMA in the flash_attention library", phase_tensor_cores)
+    hgmma = phase("tensor cores: HGMMA in the flash_attention library", phase_tensor_cores, "flash_attention", "HGMMA")
+    hmma = phase("tensor cores: HMMA in the wkv6 library", phase_tensor_cores, "wkv6", "HMMA")
     matmul_k, flash_k, wkv_k = KERNELS
     checks = {"block_matmul": phase("kernel vs plain: block_matmul", phase_kernel_vs_plain, matmul_k)}
     phase("kernel vs plain: flash_attention, test and ragged shapes", check_flash,
           FLASH_TEST_SHAPES + FLASH_RAGGED_SHAPES, (torch.float32, torch.bfloat16))
     phase("kernel vs plain: wkv6, test and ragged shapes", check_wkv6,
           WKV_TEST_SHAPES + WKV_RAGGED_SHAPES, (torch.float32, torch.bfloat16))
+    phase("kernel vs plain: wkv6 at strong decays, ragged shapes", check_wkv6,
+          WKV_RAGGED_SHAPES, (torch.float32, torch.bfloat16), "strong")
     plan, cnn_launches = phase("main path: SwapLess serving of the CNN mix", phase_main_path)
     phase("where the time goes", phase_breakdown, plan)
 
@@ -828,9 +848,18 @@ def main() -> int:
             f"kernel vs plain: {name} at the model-zoo path's shapes", check, path_shapes, path_dtypes
         )}
         phase(f"kernel vs plain: {name} at the path's shapes in float32", check, path_shapes, (torch.float32,))
+        if name == "wkv6":
+            phase("kernel vs plain: wkv6 at the path's shapes, strong decays", check_wkv6,
+                  path_shapes, path_dtypes + (torch.float32,), "strong")
     for name in ZOO:
         phase(f"model-zoo correctness: {name} float32", phase_zoo_check, name)
 
+    # wkv6's route at each (type, head_dim) it ran at on the path and in the
+    # float32 full-forward check.
+    wkv_routes = {
+        f"{str(dt)[6:]} hd {key[3]}": wkv_route(dt, key[3])
+        for (k, key, dt) in calls if k == "wkv6"
+    } | {f"float32 hd {ARCHS['rwkv6-7b'].resolved_head_dim}": wkv_route(torch.float32, ARCHS['rwkv6-7b'].resolved_head_dim)}
     times = {"block_matmul": phase("times: block_matmul", phase_times, matmul_k)}
     times.update(phase("times: flash_attention and wkv6", phase_zoo_times, calls))
 
@@ -848,6 +877,7 @@ def main() -> int:
             **times[name],
             **({"shapes_checked": checks[name]["shapes_checked"]} if "shapes_checked" in checks[name] else {}),
             **({"sass_hgmma": hgmma} if name == "flash_attention" else {}),
+            **({"sass_hmma": hmma, "routes": wkv_routes} if name == "wkv6" else {}),
         })
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": line}))

@@ -6,6 +6,14 @@ recurrence (the counterpart of ``kernels/ref.py::wkv6_ref`` and of
 ``models/rwkv.py::wkv_scan``).  Unlike the Pallas kernel, the CUDA kernel
 starts from a given state (zero by default) and returns the final state,
 which the model's prefill keeps as its decode cache.
+
+The source holds two kernels, and ``route`` says which one a call takes, as
+the C dispatch does: bfloat16 r, k, v at head_dim 64 take the chunk kernel,
+which works 64 tokens at a time with its products on the tensor cores (TF32
+operands split into high and low parts, float32 accumulators); every
+float32 shape and bfloat16 at head_dim 8, 16 or 32 take the token kernel,
+the exact recurrence one token at a time on the CUDA cores.  The routing is
+fixed; neither kernel stands in for the other.
 """
 from __future__ import annotations
 
@@ -17,7 +25,8 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (8, 16, 32, 64)   # the kernel's instantiations
+HEAD_DIMS = (8, 16, 32, 64)   # the kernels' instantiations
+CHUNK_HEAD_DIMS = (64,)       # bfloat16 ones on the chunk kernel
 
 
 @functools.cache
@@ -60,6 +69,29 @@ def wkv6_plain(
     return torch.stack(outs, dim=1), s
 
 
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel a CUDA call with r, k, v of ``dtype`` and ``head_dim``
+    launches: ``"chunk"`` (tensor cores) or ``"token"`` (CUDA cores), as
+    ``wkv6.cu``'s dispatch decides."""
+    if dtype == torch.bfloat16 and head_dim in CHUNK_HEAD_DIMS:
+        return "chunk"
+    return "token"
+
+
+def check_alignment(kernel_route: str, *tensors: torch.Tensor) -> None:
+    """The chunk kernel copies 16-byte chunks with ``cp.async``, so it takes
+    only r, k, v, w whose data starts on a 16-byte boundary (a view into
+    another tensor may not); raises ``ValueError`` otherwise."""
+    if kernel_route != "chunk":
+        return
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"the chunk wkv6 kernel takes 16-byte-aligned r, k, v, w; "
+                f"got data at {t.data_ptr():#x}"
+            )
+
+
 def _check(r, k, v, w, u, state) -> None:
     if r.dim() != 4 or not (r.shape == k.shape == v.shape == w.shape):
         raise ValueError(
@@ -96,10 +128,11 @@ def wkv6(
     float32, final state (B, H, hd, hd) float32).
 
     On CUDA tensors (contiguous; r, k, v float32 or bfloat16; w float32 or
-    bfloat16; u and state float32; hd in ``HEAD_DIMS``) this launches the
-    ``wkv6`` kernel on the current stream and raises if it cannot; on CPU
+    bfloat16; u and state float32; hd in ``HEAD_DIMS``; r, k, v, w
+    16-byte-aligned on the chunk route) this launches the kernel that
+    ``route`` names on the current stream and raises if it cannot; on CPU
     tensors it computes ``wkv6_plain``.  ``wkv6.launches`` counts the
-    kernel's launches.
+    launches of either kernel.
     """
     _check(r, k, v, w, u, state)
     if r.device.type == "cpu":
@@ -115,6 +148,7 @@ def wkv6(
     tensors = [r, k, v, w, u] + ([] if state is None else [state])
     if not all(a.is_contiguous() for a in tensors):
         raise ValueError("the wkv6 kernel takes contiguous operands")
+    check_alignment(route(r.dtype, hd), r, k, v, w)
     kernel = _kernel()
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     final = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)

@@ -3,10 +3,21 @@
 
 On CPU tensors the port's wrapper computes its plain version (the
 step-by-step recurrence); the JAX side runs the Pallas kernel in interpret
-mode, as ``tests/test_kernels.py`` runs it.  The hand-written CUDA kernel
-itself is held against the plain version by the test here that needs a card
-(skipped without one) and by ``chip_smoke.py``.
+mode, as ``tests/test_kernels.py`` runs it.  The hand-written CUDA kernels
+themselves are held against the plain version by the test here that needs a
+card (skipped without one) and by ``chip_smoke.py``.
+
+``wkv6_chunk_model`` below is a float32 model of the chunk kernel's schedule
+(``csrc/wkv6.cu``, ``tc::chunk_kernel``): chunks of 64 tokens, sub-blocks of
+16 and groups of 4, every decay a factor 2^x with x a sum of log2 w between
+an earlier and a later position, running products of w inside a group, the
+state carried across chunks, a ragged last chunk, and each tensor-core
+product on TF32 operands split into high and low parts.  It is test code,
+not a second plain version: it shows on the CPU that the algorithm meets
+the tolerance at decays where the Pallas kernel's closed form overflows.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +25,7 @@ import torch
 
 from repro.kernels import ops, ref
 from repro.models.rwkv import wkv_scan as ref_wkv_scan
+from repro_torch.kernels import wkv6 as wkv6_mod
 from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
 
 
@@ -136,3 +148,237 @@ def test_cuda_kernel_matches_plain_version(dtype):
             want_out, want_final = wkv6_plain(r, k, v, w, u, state)
             torch.testing.assert_close(out, want_out, rtol=2e-3, atol=2e-3)
             torch.testing.assert_close(final, want_final, rtol=2e-3, atol=2e-3)
+    # The chunk route (bfloat16, hd 64) at strong decays (|log w| up to 20,
+    # w = 0, w = 1 - 1e-4), at ragged lengths and at rwkv6-7b's prefill
+    # shape; the float32 route at the same decays.
+    for b, t, h, hd in [(1, 1, 2, 64), (1, 37, 3, 64), (2, 100, 4, 64), (2, 2048, 64, 64)]:
+        for with_state in (False, True):
+            r, k, v, w, u, s0 = _model_inputs(b, t, h, hd, "strong", seed=t, with_state=with_state)
+            args = [a.cuda() for a in _torch(r, k, v, w, u)]
+            args[:3] = [a.to(getattr(torch, dtype)) for a in args[:3]]
+            state = None if s0 is None else torch.from_numpy(s0).cuda()
+            assert wkv6_mod.route(args[0].dtype, hd) == ("chunk" if dtype == "bfloat16" else "token")
+            out, final = wkv6(*args, state)
+            torch.cuda.synchronize()
+            want_out, want_final = wkv6_plain(*args, state)
+            assert torch.isfinite(out).all() and torch.isfinite(final).all()
+            torch.testing.assert_close(out, want_out, rtol=2e-3, atol=2e-3)
+            torch.testing.assert_close(final, want_final, rtol=2e-3, atol=2e-3)
+
+
+# --------------------------------------------------------------------------
+# A CPU model of the chunk kernel's schedule
+# --------------------------------------------------------------------------
+CHUNK, SUB, GRP = 64, 16, 4
+NSUB = CHUNK // SUB
+LOG2_FLOOR = -100.0
+_TF32_MASK = -8192   # 0xFFFFE000: sign, exponent and 10 mantissa bits
+
+
+def _tf32_split(x):
+    """x as a high TF32 part (truncated) and the rest, itself cut to TF32."""
+    x = x.contiguous()
+    hi = (x.view(torch.int32) & _TF32_MASK).view(torch.float32)
+    lo = (x - hi).contiguous()
+    return hi, (lo.view(torch.int32) & _TF32_MASK).view(torch.float32)
+
+
+SPLIT = True   # False: one TF32 pass per product (the design the kernel rejects)
+
+
+def _mm3(a, b):
+    """a @ b with both operands split: hi*hi + (lo*hi + hi*lo)."""
+    ah, al = _tf32_split(a)
+    bh, bl = _tf32_split(b)
+    return ah @ bh + (al @ bh + ah @ bl) if SPLIT else ah @ bh
+
+
+def _mm2(a, b):
+    """a @ b with ``b`` exact in TF32 (bfloat16 values): hi*b + lo*b."""
+    ah, al = _tf32_split(a)
+    return ah @ b + al @ b if SPLIT else ah @ b
+
+
+def wkv6_chunk_model(r, k, v, w, u, state=None):
+    """The chunk kernel's algorithm in float32 torch, on the CPU."""
+    b, t_len, h, d = r.shape
+    r, k, v, w = (a.float().permute(0, 2, 1, 3) for a in (r, k, v, w))   # (B, H, T, D)
+    s = torch.zeros(b, h, d, d) if state is None else state.float().clone()
+    uu = u.float()[None]                                                  # (1, H, D)
+    zero = torch.zeros(b, h, d)
+    outs = []
+    for c0 in range(0, t_len, CHUNK):
+        n = min(CHUNK, t_len - c0)
+
+        def rows(a):   # the chunk's rows; rows past T are zeros, as the copies leave them
+            return torch.cat([a[:, :, c0:c0 + n], a.new_zeros(b, h, CHUNK - n, d)], 2)
+
+        rc, kc, vc, wc = (rows(a) for a in (r, k, v, w))
+        lw = torch.clamp(torch.log2(wc), min=LOG2_FLOOR)
+        lw[:, :, n:] = 0.0                                                # w = 1 past T
+        rh, rg, kh, kg = (torch.empty_like(rc) for _ in range(4))
+        tot = torch.empty(b, h, NSUB, d)
+        grp_tot = torch.empty(b, h, NSUB, SUB // GRP, d)
+        for i in range(NSUB):
+            acc = grp = zero
+            for q in range(SUB):   # forward: R^ over the sub-block, R' over the group
+                t = i * SUB + q
+                rh[:, :, t] = rc[:, :, t] * torch.exp2(acc)
+                rg[:, :, t] = rc[:, :, t] * torch.exp2(grp)
+                acc, grp = acc + lw[:, :, t], grp + lw[:, :, t]
+                if q % GRP == GRP - 1:
+                    grp_tot[:, :, i, q // GRP], grp = grp, zero
+            tot[:, :, i] = acc
+            acc = grp = zero
+            for q in reversed(range(SUB)):   # backward: K^ and K'
+                t = i * SUB + q
+                kh[:, :, t] = kc[:, :, t] * torch.exp2(acc)
+                kg[:, :, t] = kc[:, :, t] * torch.exp2(grp)
+                acc = acc + lw[:, :, t]
+                grp = zero if q % GRP == 0 else grp + lw[:, :, t]
+        f = torch.ones(b, h, NSUB + 1, NSUB + 1, d)   # F[i][j] = 2^(T_j + ... + T_{i-1})
+        for i in range(NSUB):
+            acc = zero
+            for j in range(i, -1, -1):
+                acc = acc + tot[:, :, j]
+                f[:, :, i + 1, j] = torch.exp2(acc)
+
+        a_mat = torch.zeros(b, h, CHUNK, CHUNK)
+        for g0 in range(0, CHUNK, GRP):   # inside a group: running products, bonus on the diagonal
+            for t in range(g0, g0 + GRP):
+                a_mat[:, :, t, t] = (rc[:, :, t] * uu * kc[:, :, t]).sum(-1)
+                q = rc[:, :, t]
+                for s_ in range(t - 1, g0 - 1, -1):
+                    a_mat[:, :, t, s_] = (q * kc[:, :, s_]).sum(-1)
+                    q = q * wc[:, :, s_]
+        for i in range(NSUB):   # between groups of a sub-block: (R' G) K'^T
+            for bg in range(SUB // GRP - 1):
+                keys = slice(i * SUB + bg * GRP, i * SUB + (bg + 1) * GRP)
+                for ag in range(bg + 1, SUB // GRP):
+                    qs = slice(i * SUB + ag * GRP, i * SUB + (ag + 1) * GRP)
+                    g_fac = torch.exp2(grp_tot[:, :, i, bg + 1:ag].sum(2))[:, :, None]
+                    a_mat[:, :, qs, keys] = _mm3(rg[:, :, qs] * g_fac, kg[:, :, keys].transpose(-1, -2))
+        for i in range(1, NSUB):   # between sub-blocks: (R^ F) K^^T
+            for j in range(i):
+                qs, keys = slice(i * SUB, (i + 1) * SUB), slice(j * SUB, (j + 1) * SUB)
+                a_mat[:, :, qs, keys] = _mm3(rh[:, :, qs] * f[:, :, i, j + 1][:, :, None], kh[:, :, keys].transpose(-1, -2))
+
+        f_out = f[:, :, torch.arange(NSUB), 0].repeat_interleave(SUB, dim=2)      # F[i(t)][0]
+        f_state = f[:, :, NSUB, 1:].repeat_interleave(SUB, dim=2)                  # F[4][j(s)+1]
+        out = _mm3(rh * f_out, s) + _mm2(a_mat, vc)
+        s = f[:, :, NSUB, 0][..., None] * s + _mm2((kh * f_state).transpose(-1, -2), vc)
+        outs.append(out[:, :, :n])
+    return torch.cat(outs, 2).permute(0, 2, 1, 3), s
+
+
+def _bf16(a):
+    """Values exact in bfloat16 (the chunk kernel's r, k, v)."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def _decays(kind, shape, rng):
+    """Decays w (float32) of one regime.  ``mild``: RWKV6's initial
+    exp(-exp(-2 + noise)), |log w| about 0.14; ``strong``: exp(-exp(x)) with
+    |log w| up to 20, a stretch of w = 0 and a stretch of w = 1 - 1e-4."""
+    if kind == "mild":
+        return np.exp(-np.exp(-2.0 + 0.5 * rng.standard_normal(shape))).astype(np.float32)
+    w = np.exp(-np.exp(rng.uniform(-6.0, np.log(20.0), shape))).astype(np.float32)
+    t = shape[1]
+    w[:, t // 4:t // 4 + 20] = 0.0
+    w[:, t // 2:t // 2 + 70] = np.float32(1.0 - 1e-4)
+    return w
+
+
+def _model_inputs(b, t, h, hd, kind, seed, with_state):
+    rng = np.random.default_rng(seed)
+    r, k, v = (_bf16(rng.standard_normal((b, t, h, hd), dtype=np.float32)) for _ in range(3))
+    w = _decays(kind, (b, t, h, hd), rng)
+    u = (rng.standard_normal((h, hd)) * 0.1).astype(np.float32)
+    s0 = rng.standard_normal((b, h, hd, hd), dtype=np.float32) if with_state else None
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero-state", "random-state"])
+@pytest.mark.parametrize("kind", ["mild", "strong"])
+@pytest.mark.parametrize("b,t,h,hd", [(1, 200, 2, 16), (2, 130, 2, 32)])
+def test_chunk_model_matches_the_plain_recurrence(b, t, h, hd, kind, with_state):
+    """At mild and at strong decays (|log w| up to 20, w = 0, w = 1 - 1e-4),
+    from zero and from a random state, over a ragged last chunk: finite,
+    and within 2e-3 of the step-by-step recurrence."""
+    r, k, v, w, u, s0 = _model_inputs(b, t, h, hd, kind, seed=t + hd, with_state=with_state)
+    args = _torch(r, k, v, w, u) + [None if s0 is None else torch.from_numpy(s0)]
+    out, state = wkv6_chunk_model(*args)
+    want_out, want_state = wkv6_plain(*args)
+    assert torch.isfinite(out).all() and torch.isfinite(state).all()
+    torch.testing.assert_close(out, want_out, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(state, want_state, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("t", [64, 128])
+def test_chunk_model_matches_the_pallas_kernel_at_mild_decays(t):
+    """At mild decays, where the Pallas kernel's closed form is in range,
+    the model agrees with ``ops.wkv6`` and ``ref.wkv6_ref`` too."""
+    r, k, v, w, u, _ = _model_inputs(1, t, 2, 16, "mild", seed=t, with_state=False)
+    out, _ = wkv6_chunk_model(*_torch(r, k, v, w, u))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ops.wkv6(*_jax(r, k, v, w, u), chunk=16)), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(out.numpy(), np.asarray(_wkv6_ref(*_jax(r, k, v, w, u))), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("head_dim", wkv6_mod.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_route_puts_bf16_at_64_on_the_chunk_kernel(dtype, head_dim):
+    want = "chunk" if dtype == torch.bfloat16 and head_dim == 64 else "token"
+    assert wkv6_mod.route(dtype, head_dim) == want
+
+
+def test_route_mirrors_the_c_dispatch():
+    """The head dims that ``wkv6.cu``'s entry sends bfloat16 r, k, v to
+    ``tc::launch`` with are ``CHUNK_HEAD_DIMS``; float32 never goes there."""
+    src = (wkv6_mod.build.CSRC_DIR / "wkv6.cu").read_text()
+    entry = src[src.index('extern "C" int wkv6('):]
+    chunk_dims = tuple(int(d) for d in re.findall(r"if \(rkv_bf16 && hd == (\d+)\)", entry))
+    assert chunk_dims == wkv6_mod.CHUNK_HEAD_DIMS
+    block = entry[entry.index("if (rkv_bf16 && hd =="):]
+    block = block[:block.index("}")]
+    assert block.count("tc::launch<") == 2   # w in float32 or in bfloat16
+
+
+def _misaligned(shape, dtype):
+    """A contiguous view whose data starts one element past an aligned base."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+@pytest.mark.parametrize("which", ["r", "k", "v", "w"])
+def test_alignment_check_rejects_a_misaligned_view_on_the_chunk_route(which):
+    tensors = {name: torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16) for name in "rkv"}
+    tensors["w"] = torch.zeros(1, 4, 2, 64)
+    dtype = torch.float32 if which == "w" else torch.bfloat16
+    tensors[which] = _misaligned((1, 4, 2, 64), dtype)
+    assert tensors[which].is_contiguous() and tensors[which].data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        wkv6_mod.check_alignment("chunk", *tensors.values())
+    wkv6_mod.check_alignment("token", *tensors.values())   # reads element by element
+
+
+def test_alignment_check_takes_aligned_tensors():
+    r = torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16)
+    assert r.data_ptr() % 16 == 0
+    wkv6_mod.check_alignment("chunk", r, r, r, torch.zeros(1, 4, 2, 64))
+
+
+if __name__ == "__main__":
+    # The model against the plain recurrence at rwkv6-7b's prefill shape
+    # (B 2, T 2048, H 64, hd 64), with split operands and with one TF32 pass
+    # per product: the largest absolute error, and how far it passes
+    # 2e-3 + 2e-3 |want| (negative: within the tolerance).
+    for kind in ("mild", "strong"):
+        r, k, v, w, u, s0 = _model_inputs(2, 2048, 64, 64, kind, seed=0, with_state=True)
+        args = _torch(r, k, v, w, u) + [torch.from_numpy(s0)]
+        want, _ = wkv6_plain(*args)
+        for SPLIT in (True, False):
+            out, _ = wkv6_chunk_model(*args)
+            err = (out - want).abs()
+            excess = float((err - 2e-3 - 2e-3 * want.abs()).max())
+            print(f"{kind} decays, {'split' if SPLIT else 'one TF32 pass'}: max_abs_err={float(err.max()):.3e} "
+                  f"excess over the tolerance {excess:.3e}, finite={bool(torch.isfinite(out).all())}")

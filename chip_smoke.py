@@ -10,18 +10,20 @@ and prints no result line):
 2. build: every CUDA source of the port (``src/repro_torch/kernels/csrc``),
    compiled in parallel from the checkout into ``build/repro_torch``, with
    each kernel's registers and spills; then the count of tensor-core
-   instructions in the SASS of the flash_attention library (``HGMMA``) and
-   of the wkv6 library (``HMMA``), neither of which may be 0;
+   instructions in the SASS of the block_matmul and flash_attention
+   libraries (``HGMMA``) and of the wkv6 library (``HMMA``), none of which
+   may be 0;
 3. kernel vs plain: each kernel's wrapper on the card at the reference's
    test shapes and ragged ones (``block_matmul`` also at the serving path's
-   shapes), held against its plain PyTorch version; flash_attention and
-   wkv6 print the route of each shape; wkv6 also at strong decays (|log w|
-   up to 20, a stretch of w = 0, a stretch of w = 1 - 1e-4) at ragged
-   lengths;
+   shapes and, in bfloat16, at ragged tensor-core tiles and 4096^3), held
+   against its plain PyTorch version; each kernel prints the route of each
+   shape; wkv6 also at strong decays (|log w| up to 20, a stretch of w = 0,
+   a stretch of w = 1 - 1e-4) at ragged lengths;
 4. main path: ``repro_torch.launch.serve`` serving inceptionv4 + mnasnet
    through the GPU-prefix / host-suffix engine, under the SwapLess plan and
    under a forced split, with every output held against a host-only forward
-   of the same weights and each kernel's launches counted;
+   of the same weights, each kernel's launches counted and block_matmul's
+   route recorded at every call;
 5. where the time goes: warm requests one at a time (closed loop) under
    the SwapLess plan, and each stage's time on the card and on one host
    core;
@@ -69,10 +71,11 @@ from repro_torch.core.planner import Plan  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import causal_attention, causal_attention_plain, route  # noqa: E402
 from repro_torch.kernels.matmul import matmul, matmul_plain  # noqa: E402
+from repro_torch.kernels.matmul import route as matmul_route  # noqa: E402
 from repro_torch.kernels.wkv6 import route as wkv_route  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6, wkv6_plain  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import attention, rwkv  # noqa: E402
+from repro_torch.models import attention, cnn, rwkv  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.models.cnn import (  # noqa: E402
@@ -127,8 +130,10 @@ KERNELS = [
 # (M, K, N): tests/test_kernels.py::TestMatmul's aligned shapes, and ragged ones.
 TEST_SHAPES = [(128, 128, 128), (256, 128, 64), (64, 256, 128), (512, 64, 256)]
 RAGGED_SHAPES = [(1, 1, 1), (37, 200, 13), (129, 65, 31), (1000, 3, 70)]
+# bfloat16 only: ragged tiles with 16-byte rows on the tensor-core route.
+TENSOR_CORE_SHAPES = [(200, 64, 264), (1000, 1032, 520)]
 TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}   # TestMatmul's tolerances
-LARGE_SHAPE = (4096, 4096, 4096)                     # timed in bfloat16 only
+LARGE_SHAPE = (4096, 4096, 4096)                     # checked and timed in bfloat16 only
 
 
 def main_path_shapes() -> list[tuple[int, int, int]]:
@@ -211,13 +216,15 @@ def phase_tensor_cores(name: str, opcode: str) -> int:
 
 def phase_kernel_vs_plain(kernel: dict) -> dict:
     """Hold the kernel against its plain version; returns what the kernels
-    line reports: the largest error on the main path's (float32) shapes and
-    every shape checked."""
+    line reports: the largest error on the main path's (float32) shapes,
+    every shape checked and how many took each route.  Both routes must
+    occur."""
     fn, plain = kernel["wrapper"], kernel["plain"]
     main = main_path_shapes()
-    checked, main_err = [], 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for i, shape in enumerate(dict.fromkeys(main + TEST_SHAPES + RAGGED_SHAPES)):
+    shapes = list(dict.fromkeys(main + TEST_SHAPES + RAGGED_SHAPES))
+    checked, main_err, routes = [], 0.0, Counter()
+    for dtype, extra in ((torch.float32, []), (torch.bfloat16, TENSOR_CORE_SHAPES + [LARGE_SHAPE])):
+        for i, shape in enumerate(shapes + extra):
             x, y = operands(shape, dtype, seed=i)
             got = fn(x, y)
             torch.cuda.synchronize()
@@ -225,31 +232,56 @@ def phase_kernel_vs_plain(kernel: dict) -> dict:
             err = float((got.float() - want.float()).abs().max())
             tol = TOL[dtype]
             ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-            print(f"  {kernel['name']} {str(dtype)[6:]} {shape}: max_abs_err={err:.3e} tol={tol} {'ok' if ok else 'MISMATCH'}")
+            r = matmul_route(dtype, shape[0], shape[2], shape[1])
+            routes[r] += 1
+            print(f"  {kernel['name']} {str(dtype)[6:]} {shape} {r}: max_abs_err={err:.3e} tol={tol} {'ok' if ok else 'MISMATCH'}")
             if not ok:
                 raise AssertionError(f"{kernel['name']} disagrees with its plain version at {shape} {dtype}")
             if dtype == torch.float32 and shape in main:
                 main_err = max(main_err, err)
             checked.append([*shape, str(dtype)[6:]])
-    return {"max_abs_err": main_err, "shapes_checked": checked}
+    if set(routes) != {"cuda-core", "tensor-core"}:
+        raise AssertionError(f"block_matmul's checks did not take both routes: {dict(routes)}")
+    return {"max_abs_err": main_err, "shapes_checked": checked, "routes": dict(routes)}
 
 
-def phase_main_path() -> tuple[Plan, dict[str, int]]:
-    """Serve the mix on the card; returns the SwapLess plan and each
-    kernel's launches on the path."""
+@contextlib.contextmanager
+def recording_matmul_routes(routes: Counter):
+    """Count the route of every call the CNN stages make to the matmul
+    wrapper on the card (host suffixes compute the plain version).  The
+    wrapper itself, and its launch count, are unchanged."""
+    wrapped = cnn.matmul
+
+    def rec(x, y, out_dtype=None):
+        if x.device.type == "cuda":
+            routes[matmul_route(x.dtype, x.shape[0], y.shape[1], x.shape[1])] += 1
+        return wrapped(x, y, out_dtype)
+
+    cnn.matmul = rec
+    try:
+        yield
+    finally:
+        cnn.matmul = wrapped
+
+
+def phase_main_path() -> tuple[Plan, dict[str, int], dict[str, int]]:
+    """Serve the mix on the card; returns the SwapLess plan, each kernel's
+    launches on the path and block_matmul's routes there."""
+    routes = Counter()
     for k in KERNELS:
         k["wrapper"].launches = 0
     t0 = time.perf_counter()
-    plan, done = serve.main([
-        "--models", ",".join(MODELS), "--rates", RATES,
-        "--requests", str(REQUESTS), "--k-max", str(K_MAX), "--device", DEVICE.type,
-    ])
-    models = [build_executable(PAPER_CNN_SPECS[n], seed=i, device=DEVICE) for i, n in enumerate(MODELS)]
-    print(f"forced split {FORCED_PLAN.partition} cores {FORCED_PLAN.cores}:")
-    done_forced = serve.run_requests(models, FORCED_PLAN, K_MAX, REQUESTS, DEVICE)
-    serve.report_latencies(MODELS, done_forced)
+    with recording_matmul_routes(routes):
+        plan, done = serve.main([
+            "--models", ",".join(MODELS), "--rates", RATES,
+            "--requests", str(REQUESTS), "--k-max", str(K_MAX), "--device", DEVICE.type,
+        ])
+        models = [build_executable(PAPER_CNN_SPECS[n], seed=i, device=DEVICE) for i, n in enumerate(MODELS)]
+        print(f"forced split {FORCED_PLAN.partition} cores {FORCED_PLAN.cores}:")
+        done_forced = serve.run_requests(models, FORCED_PLAN, K_MAX, REQUESTS, DEVICE)
+        serve.report_latencies(MODELS, done_forced)
     launches = {k["name"]: k["wrapper"].launches for k in KERNELS}
-    print(f"main path: {time.perf_counter() - t0:.2f} s, launches {launches}")
+    print(f"main path: {time.perf_counter() - t0:.2f} s, launches {launches}, block_matmul routes {dict(routes)}")
 
     # Every request completed, with finite outputs equal to a host-only
     # forward of the same weights (serve builds model i from seed i).
@@ -273,7 +305,9 @@ def phase_main_path() -> tuple[Plan, dict[str, int]]:
     # have no attention or recurrence.
     expected = REQUESTS * (sum(plan.partition) + sum(FORCED_PLAN.partition))
     assert launches == {"block_matmul": expected, "flash_attention": 0, "wkv6": 0}, (launches, expected)
-    return plan, launches
+    # Every product of the path is float32 and takes the CUDA-core route.
+    assert routes == {"cuda-core": expected}, (dict(routes), expected)
+    return plan, launches, dict(routes)
 
 
 def phase_breakdown(plan: Plan) -> None:
@@ -372,6 +406,7 @@ def phase_times(kernel: dict) -> dict:
     print(f"times of {kernel['name']} (ms per call, CUDA events):")
     for shape, dtype in rows:
         x, y = operands(shape, dtype, seed=0)
+        r = matmul_route(dtype, shape[0], shape[2], shape[1])
         iters = 20 if shape == LARGE_SHAPE else 200
         t = {
             "ms": time_ms(lambda: fn(x, y), iters),
@@ -384,7 +419,7 @@ def phase_times(kernel: dict) -> dict:
         t["bound_ms"], t["bound_by"] = bound(shape, dtype)
         per_shape[(shape, dtype)] = t
         print(
-            f"  {str(dtype)[6:]} M={shape[0]} K={shape[1]} N={shape[2]}: "
+            f"  {str(dtype)[6:]} M={shape[0]} K={shape[1]} N={shape[2]} {r}: "
             f"kernel={t['ms']:.6f} plain={t['plain_ms']:.6f} torch.matmul={t['library_ms']:.6f} "
             f"bound={t['bound_ms']:.6f} ({t['bound_by']}) share={t['bound_ms'] / t['ms']:.4%}; "
             f"from a CUDA graph: kernel={t['graph_ms']:.6f} plain={t['plain_graph_ms']:.6f} "
@@ -821,6 +856,7 @@ def main() -> int:
 
     kind = phase("device", phase_device)
     phase("build", phase_build)
+    matmul_hgmma = phase("tensor cores: HGMMA in the block_matmul library", phase_tensor_cores, "block_matmul", "HGMMA")
     hgmma = phase("tensor cores: HGMMA in the flash_attention library", phase_tensor_cores, "flash_attention", "HGMMA")
     hmma = phase("tensor cores: HMMA in the wkv6 library", phase_tensor_cores, "wkv6", "HMMA")
     matmul_k, flash_k, wkv_k = KERNELS
@@ -831,7 +867,7 @@ def main() -> int:
           WKV_TEST_SHAPES + WKV_RAGGED_SHAPES, (torch.float32, torch.bfloat16))
     phase("kernel vs plain: wkv6 at strong decays, ragged shapes", check_wkv6,
           WKV_RAGGED_SHAPES, (torch.float32, torch.bfloat16), "strong")
-    plan, cnn_launches = phase("main path: SwapLess serving of the CNN mix", phase_main_path)
+    plan, cnn_launches, path_routes = phase("main path: SwapLess serving of the CNN mix", phase_main_path)
     phase("where the time goes", phase_breakdown, plan)
 
     calls = Counter()
@@ -876,6 +912,8 @@ def main() -> int:
             "max_abs_err": checks[name]["max_abs_err"],
             **times[name],
             **({"shapes_checked": checks[name]["shapes_checked"]} if "shapes_checked" in checks[name] else {}),
+            **({"sass_hgmma": matmul_hgmma, "routes": {"main path": path_routes, "kernel vs plain": checks[name]["routes"]}}
+               if name == "block_matmul" else {}),
             **({"sass_hgmma": hgmma} if name == "flash_attention" else {}),
             **({"sass_hmma": hmma, "routes": wkv_routes} if name == "wkv6" else {}),
         })

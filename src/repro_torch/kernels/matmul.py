@@ -4,6 +4,15 @@ Port of the JAX package's ``kernels/ops.py::matmul`` over the Pallas kernel
 ``kernels/block_matmul.py::block_matmul``, with ``matmul_plain`` as the
 counterpart of ``kernels/ref.py::matmul_ref``.  The kernel masks ragged
 edges itself, so there is no padding wrapper and no block-size argument.
+
+The source holds two kernels, and ``route`` says which one a call takes, as
+the C dispatch does: bfloat16 operands whose rows are whole 16-byte chunks
+(K and N multiples of 8) and whose product is at least
+``TENSOR_CORE_MIN_MNK`` multiply-adds run on the tensor cores (wgmma, fed
+by TMA); every float32 call and the other bfloat16 ones run float32 FMAs on
+the CUDA cores, with a tile chosen for latency (every product of the
+serving path takes this route).  The routing is fixed; neither kernel
+stands in for the other.
 """
 from __future__ import annotations
 
@@ -16,7 +25,9 @@ from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _INT32_MAX = 2**31 - 1
-_MAX_GRID_Y = 65535 * 64   # the kernel tiles N by 64 over gridDim.y
+# bfloat16 products of at least this many multiply-adds (M * N * K) take the
+# tensor cores: block_matmul.cu's BLOCK_MATMUL_TC_MIN_MNK.
+TENSOR_CORE_MIN_MNK = 2**21
 
 
 @functools.cache
@@ -42,6 +53,29 @@ def matmul_plain(
     return torch.matmul(x.float(), y.float()).to(out_dtype or x.dtype)
 
 
+def route(dtype: torch.dtype, m: int, n: int, k: int) -> str:
+    """Which kernel a CUDA call of ``(m, k) @ (k, n)`` in ``dtype`` launches:
+    ``"tensor-core"`` or ``"cuda-core"``, as ``block_matmul.cu``'s dispatch
+    decides."""
+    if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and m * n * k >= TENSOR_CORE_MIN_MNK:
+        return "tensor-core"
+    return "cuda-core"
+
+
+def check_alignment(kernel_route: str, *tensors: torch.Tensor) -> None:
+    """The tensor-core kernel reads its operands with TMA, which takes only
+    data that starts on a 16-byte boundary (a view into another tensor may
+    not); raises ``ValueError`` otherwise."""
+    if kernel_route != "tensor-core":
+        return
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"the tensor-core block_matmul kernel takes 16-byte-aligned "
+                f"operands; got data at {t.data_ptr():#x}"
+            )
+
+
 def _check(x: torch.Tensor, y: torch.Tensor, out_dtype: torch.dtype) -> None:
     if x.dim() != 2 or y.dim() != 2:
         raise ValueError(f"matmul takes 2-D operands, got {tuple(x.shape)} @ {tuple(y.shape)}")
@@ -64,10 +98,11 @@ def matmul(
 
     Operands are float32 or bfloat16 (the same for both); the output is
     ``out_dtype``, float32 or bfloat16, by default ``x``'s dtype.  On CUDA
-    tensors this launches the ``block_matmul`` kernel on the current stream
-    (row-major contiguous operands of at least one element per dimension)
-    and raises if it cannot; on CPU tensors it computes ``matmul_plain``.
-    ``matmul.launches`` counts the kernel's launches.
+    tensors (row-major contiguous operands of at least one element per
+    dimension; 16-byte-aligned on the tensor-core route) this launches the
+    kernel that ``route`` names on the current stream and raises if it
+    cannot; on CPU tensors it computes ``matmul_plain``.
+    ``matmul.launches`` counts the launches of either kernel.
     """
     out_dtype = out_dtype or x.dtype
     _check(x, y, out_dtype)
@@ -78,19 +113,26 @@ def matmul(
     n = y.shape[1]
     if min(m, n, k) < 1:
         raise ValueError(f"empty operand: {tuple(x.shape)} @ {tuple(y.shape)}")
-    if max(m, k) > _INT32_MAX or n > _MAX_GRID_Y:
+    if max(m, n, k) > _INT32_MAX:
         raise ValueError(f"operand too large for the kernel: {tuple(x.shape)} @ {tuple(y.shape)}")
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("matmul's kernel takes row-major contiguous operands")
+    check_alignment(route(x.dtype, m, n, k), x, y)
     kernel = _kernel()
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = kernel(
-            x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k,
-            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-            stream,
-        )
+    index = x.device.index
+    stream = torch.cuda.current_stream(index).cuda_stream
+    args = (
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k,
+        int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), stream,
+    )
+    # The kernel launches on the current device: switch only when the
+    # operands lie on another one.
+    if index == torch.cuda.current_device():
+        err = kernel(*args)
+    else:
+        with torch.cuda.device(index):
+            err = kernel(*args)
     if err != 0:
         raise RuntimeError(f"block_matmul launch failed with CUDA error {err}")
     matmul.launches += 1

@@ -32,7 +32,7 @@ from repro_torch.models.transformer import (
     unembed,
 )
 
-PARITY_ARCHS = ["qwen1.5-0.5b", "gemma3-1b", "rwkv6-7b"]
+PARITY_ARCHS = ["qwen1.5-0.5b", "gemma3-1b", "minicpm-2b", "nemotron-4-15b", "rwkv6-7b"]
 SUPPORTED = ["qwen1.5-0.5b", "gemma3-1b", "minicpm-2b", "nemotron-4-15b", "rwkv6-7b"]
 UNSUPPORTED = ["grok-1-314b", "llama4-maverick-400b-a17b", "hymba-1.5b", "phi-3-vision-4.2b", "musicgen-large"]
 PROMPT, DECODE, MAX_LEN = 24, 8, 40   # the prompt is longer than the reduced window (16)

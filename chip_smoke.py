@@ -35,14 +35,33 @@ and prints no result line):
 7. model-zoo correctness: float32, full width and depth, the full forward
    (kernels on every layer) against ``prefill_step`` of 16 tokens plus
    teacher-forced ``decode_step``s (which launch no hand kernel);
-8. times: CUDA-event times of each kernel at its path's shapes, its plain
-   version and the one PyTorch call that computes the same function (where
-   there is one), beside the card's bound, launched eagerly and replayed
-   from a CUDA graph (device time alone).
+8. the device stepper's recurrence: ``lindley_ends`` on the card at 7,
+   4097 and 2^20 requests (a clock past 5,000 s) against the float64
+   ``_server_ends``, within 2e-6 s of delay;
+9. ``simulate(backend="torch")`` against the stepper on the collab8, swap2
+   and thrash16 mixes: integer observables equal, means and p99 within
+   1e-4;
+10. the replica engine: collab8, 2^20 requests, 32 service-jitter replicas;
+    parity on two replicas against per-replica ``simulate`` (2e-4), then
+    its wall time and throughput against the NumPy stepper over the
+    replicas;
+11. the plan evaluator: ``TorchPlanEvaluator`` against the NumPy batch on
+    the three mixes under FCFS and swap_batch (5e-5) and the SLO
+    objectives, ``hill_climb(evaluator=...)`` against the NumPy climb (cold,
+    warm, swap_batch), and each frontier call timed beside the NumPy batch;
+12. online control: ``run_adaptive`` on the Fig. 8 trace with the device
+    stepper and a planner that scores on the card, against the defaults:
+    identical re-plans, means within 1e-4, planner ms per re-plan;
+13. times: CUDA-event times of each kernel at its path's shapes, its plain
+    version and the one PyTorch call that computes the same function (where
+    there is one), beside the card's bound, launched eagerly and replayed
+    from a CUDA graph (device time alone).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
-result when no CUDA device is present.
+Phases 8-12 run torch ops, not hand kernels (the reference jits them; none
+reaches a Pallas kernel): their times, launches per call and bounds go on
+a ``{"torch_ops": ...}`` line.  The line before the last is a JSON object
+with one entry per kernel; the last line is ``{"ok": true, "device":
+{...}}``.  Exits non-zero without a result when no CUDA device is present.
 """
 from __future__ import annotations
 
@@ -66,8 +85,17 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+import numpy as np  # noqa: E402
+
 from repro_torch.configs import ARCHS, INPUT_SHAPES  # noqa: E402
-from repro_torch.core.planner import Plan  # noqa: E402
+from repro_torch.configs.paper_models import paper_profile  # noqa: E402
+from repro_torch.core import latency  # noqa: E402
+from repro_torch.core.allocator import hill_climb, prop_alloc  # noqa: E402
+from repro_torch.core.objective import deadline_miss, p_tail  # noqa: E402
+from repro_torch.core.plan_tables import EvalTables  # noqa: E402
+from repro_torch.core.planner import FCFS, DisciplineSpec, Plan, TenantSpec, validate_plan  # noqa: E402
+from repro_torch.core.torch_eval import TorchPlanEvaluator  # noqa: E402
+from repro_torch.hw.specs import EDGE_TPU_PLATFORM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import causal_attention, causal_attention_plain, route  # noqa: E402
 from repro_torch.kernels.matmul import matmul, matmul_plain  # noqa: E402
@@ -78,6 +106,10 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention, cnn, rwkv  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving import torch_stepper  # noqa: E402
+from repro_torch.serving.controller import run_adaptive  # noqa: E402
+from repro_torch.serving.simulator import _server_ends, make_backend, simulate  # noqa: E402
+from repro_torch.serving.workload import RatePhase, Trace, dynamic_trace  # noqa: E402
 from repro_torch.models.cnn import (  # noqa: E402
     PAPER_CNN_SPECS,
     build_executable,
@@ -839,6 +871,420 @@ def phase_zoo_times(calls: Counter) -> dict[str, dict]:
     return totals
 
 
+# --------------------------------------------------------------------------
+# SwapLess simulators, plan evaluator and online controller on the card: the
+# reference's jitted recurrences (ROADMAP B1-B5), ported as torch ops
+# --------------------------------------------------------------------------
+SIM_HW = EDGE_TPU_PLATFORM
+SWAP_BATCH = DisciplineSpec(kind="swap_batch", batch_cap=64)
+LINDLEY_SIZES = (7, 4097, 1 << 20)      # 2^20 is the replica engine's size
+DELAY_TOL = 2e-6                        # tests/test_jax_sim.py, seconds of delay
+STAT_REL = 1e-4                         # means and p99, torch vs stepper backend
+BACKEND_REQUESTS = 6000
+REPLICA_REQUESTS, REPLICAS = 1 << 20, 32
+# benchmarks/jax_throughput.py::_RATES: collab8 at ~0.6 TPU utilization (at
+# 25 req/s per tenant its 4 full-TPU squeezenets would saturate the queue).
+REPLICA_RATES = [2.4] * 4 + [15.0] * 4
+REPLICA_REL = 2e-4
+EVAL_RTOL = 5e-5
+# benchmarks/fig8_dynamic.py: mnasnet + inceptionv4, seed 5.
+FIG8_MODELS = ("mnasnet", "inceptionv4")
+FIG8_PHASES = [
+    RatePhase(0.0, 300.0, (5.0, 1.0)),
+    RatePhase(300.0, 600.0, (5.0, 3.0)),
+    RatePhase(600.0, 900.0, (5.0, 5.0)),
+]
+FIG8_KW = dict(replan_period=30.0, window=30.0, initial_rates=(5.0, 1.0))
+
+
+def sim_mixes() -> dict[str, tuple[list[TenantSpec], Plan]]:
+    """benchmarks/sim_throughput.py::_mixes, without its size caps."""
+    sq, mb = paper_profile("squeezenet"), paper_profile("mobilenetv2")
+    eff, gpu = paper_profile("efficientnet"), paper_profile("gpunet")
+    mn = paper_profile("mnasnet")
+    collab_profiles = [sq] * 4 + [mb] * 4
+    collab = Plan(tuple([sq.num_partition_points] * 4 + [1] * 4), tuple([0] * 4 + [1] * 4))
+    thrash_profiles = [sq, mb, mn, eff] * 4
+    thrash = Plan(tuple(p.num_partition_points for p in thrash_profiles), tuple(0 for _ in thrash_profiles))
+    mixes = {
+        "collab8": ([TenantSpec(p, 1.0) for p in collab_profiles], collab),
+        "swap2": ([TenantSpec(p, 1.0) for p in (eff, gpu)], Plan((6, 5), (0, 0))),
+        "thrash16": ([TenantSpec(p, 1.0) for p in thrash_profiles], thrash),
+    }
+    for ts, plan in mixes.values():
+        validate_plan(plan, ts, SIM_HW.cpu.n_cores)
+    return mixes
+
+
+def poisson_columns(rates, n_req, seed) -> Trace:
+    """Merged-Poisson trace with per-model rates (sorted, unit scale), as
+    tests/test_jax_sim.py and benchmarks/jax_throughput.py draw it."""
+    rng = np.random.default_rng(seed)
+    lam = float(sum(rates))
+    arr = np.cumsum(rng.exponential(1.0 / lam, n_req))
+    mi = rng.choice(len(rates), size=n_req, p=np.asarray(rates) / lam).astype(np.int64)
+    return Trace(mi, arr)
+
+
+@contextlib.contextmanager
+def capturing(module, name: str, calls: list):
+    """Record the arguments of every call to ``module.name`` (a torch-op
+    function of the port) while the block runs, so that the call can be
+    timed alone at the shapes its path gave it."""
+    fn = getattr(module, name)
+
+    def rec(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(module, name, rec)
+    try:
+        yield fn
+    finally:
+        setattr(module, name, fn)
+
+
+def device_activity(fn) -> dict:
+    """Kernels and copies the profiler saw on the card during one call of
+    ``fn`` (after a warm call); ``None`` counts where it saw nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(2):   # the profiler now and then reports an empty cycle
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = copies = 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                if e.name.startswith(("Memcpy", "Memset")):
+                    copies += 1
+                else:
+                    kernels += 1
+        if kernels:
+            return {"kernels": kernels, "copies": copies}
+    return {"kernels": None, "copies": None}
+
+
+def op_bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """Least time (ms) for float32 work: bytes at the memory rate or
+    operations at the float32 peak, whichever is longer."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs if isinstance(x, torch.Tensor))
+
+
+def timed_host(fn, reps: int = 1):
+    """(result, best host ms over ``reps``)."""
+    best, out = math.inf, None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return out, best
+
+
+def op_entry(replaces: str, fn, n_bytes: float, n_ops: float, host_ms: float, iters: int, **extra) -> dict:
+    """One torch_ops row: device time per call (CUDA events), launches per
+    call (profiler), the bound, and the host NumPy time of the same work."""
+    ms = time_ms(fn, iters, warmup=2)
+    bound_ms, bound_by = op_bound(n_bytes, n_ops)
+    return {
+        "replaces": replaces, "ms": ms, **device_activity(fn), "bound_ms": bound_ms,
+        "bound_by": bound_by, "bound_share": bound_ms / ms, "host_numpy_ms": host_ms, **extra,
+    }
+
+
+def phase_lindley() -> dict:
+    """``lindley_ends`` on the card against the float64 ``_server_ends``;
+    returns B1's row, timed at 2^20 requests."""
+    row = None
+    torch_stepper.lindley_ends(np.arange(4.0), np.ones(4), 0.0, device=DEVICE)   # context and allocator warm-up
+    for n in LINDLEY_SIZES:
+        rng = np.random.default_rng(n)
+        enq = np.cumsum(rng.exponential(0.005, n))   # 200 req/s: 2^20 requests reach ~5,240 s
+        svc = rng.exponential(0.004, n)               # utilization 0.8
+        calls = []
+        with capturing(torch_stepper, "_delays", calls):
+            got, card_ms = timed_host(lambda: torch_stepper.lindley_ends(enq, svc, 0.0, device=DEVICE))
+        want, host_ms = timed_host(lambda: _server_ends(enq, svc, 0.0))
+        err = float(np.abs((got - enq) - (want - enq)).max())
+        print(f"  lindley_ends n={n}: clock {enq[-1]:.1f} s, max |delay - float64| = {err:.3e} s "
+              f"(tol {DELAY_TOL}); card {card_ms:.3f} ms with copies, _server_ends {host_ms:.3f} ms")
+        if not err <= DELAY_TOL:
+            raise AssertionError(f"lindley_ends at n={n} is {err:.3e} s off the float64 recurrence")
+        if n == LINDLEY_SIZES[-1]:
+            (args, _), = calls
+            a, b, x_init, c, l = args
+            row = op_entry(
+                "src/repro/serving/jax_stepper.py:88", lambda: torch_stepper._delays(a, b, x_init, c, l),
+                n_bytes=3 * a.numel() * 4, n_ops=2 * a.numel(), host_ms=host_ms, iters=20,
+                shape=[int(a.shape[0]), c, l], max_abs_err_s=err, call_with_copies_ms=card_ms,
+            )
+    return row
+
+
+def phase_backends() -> dict:
+    """``simulate(backend="torch")`` against the stepper on the three mixes."""
+    out = {}
+    for name, (ts, plan) in sim_mixes().items():
+        trace = poisson_columns([2.0] * len(ts), BACKEND_REQUESTS, seed=11)
+        want, host_ms = timed_host(lambda: simulate(ts, plan, SIM_HW, trace, warmup_frac=0.0))
+        got, card_ms = timed_host(lambda: simulate(ts, plan, SIM_HW, trace, warmup_frac=0.0, backend="torch", device=DEVICE))
+        worst = 0.0
+        assert got.misses == want.misses and got.tpu_requests == want.tpu_requests, name
+        for m in range(len(ts)):
+            assert len(got.latencies[m]) == len(want.latencies[m]), (name, m)
+            assert np.array_equal(got.arrivals[m], want.arrivals[m]), (name, m)
+            for stat in ("mean_latency", "p99"):
+                a, b = getattr(want, stat)(m), getattr(got, stat)(m)
+                worst = max(worst, abs(b - a) / abs(a))
+                if not math.isclose(b, a, rel_tol=STAT_REL, abs_tol=1e-6):
+                    raise AssertionError(f"{name} model {m} {stat}: torch {b} vs stepper {a}")
+        print(f"  {name}: {BACKEND_REQUESTS} requests, integer observables equal, worst mean/p99 "
+              f"rel diff {worst:.3e} (tol {STAT_REL}); torch backend {card_ms:.1f} ms, stepper {host_ms:.1f} ms")
+        out[name] = {"worst_rel": worst, "torch_ms": card_ms, "stepper_ms": host_ms}
+    return out
+
+
+def phase_replicas() -> dict:
+    """The Monte-Carlo replica engine at the reference benchmark's headline
+    size: parity on two replicas, then throughput against the NumPy
+    stepper; returns the engine's numbers and B2's and B3's rows."""
+    ts, plan = sim_mixes()["collab8"]
+    profs = [t.profile for t in ts]
+    trace = poisson_columns(REPLICA_RATES, REPLICA_REQUESTS, seed=0)
+    scales = np.random.default_rng(1).uniform(0.8, 1.25, size=(REPLICAS, len(profs)))
+    mi = trace.model_idx
+
+    stats = make_backend("torch", profs, plan, SIM_HW, device=DEVICE).run_trace_replicas(trace, scales[:2])
+    worst = 0.0
+    for r in range(2):
+        want = simulate(ts, plan, SIM_HW, Trace(mi, trace.arrival, scales[r][mi]), warmup_frac=0.0)
+        assert list(stats.misses) == want.misses
+        assert math.isclose(stats.tpu_busy[r], want.tpu_busy, rel_tol=1e-4)
+        for m in range(len(profs)):
+            assert stats.counts[m] == len(want.latencies[m])
+            a = want.mean_latency(m)
+            worst = max(worst, abs(stats.mean_latency[r, m] - a) / a)
+            if not math.isclose(stats.mean_latency[r, m], a, rel_tol=REPLICA_REL):
+                raise AssertionError(f"replica {r} model {m}: {stats.mean_latency[r, m]} vs {a}")
+    print(f"  parity on 2 replicas x {REPLICA_REQUESTS} requests: worst mean rel diff {worst:.3e} (tol {REPLICA_REL}), "
+          f"counts, misses and busy equal")
+
+    sim = make_backend("torch", profs, plan, SIM_HW, device=DEVICE)
+    tpu_calls, cpu_calls = [], []
+    with capturing(torch_stepper, "_tpu_replicas", tpu_calls), capturing(torch_stepper, "_cpu_replicas", cpu_calls):
+        sim.run_trace_replicas(trace, scales)     # first run: allocator warm-up
+    walls, events = [], []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        sim.run_trace_replicas(trace, scales)
+        end.record()
+        walls.append(time.perf_counter() - t0)
+        end.synchronize()
+        events.append(start.elapsed_time(end) / 1e3)
+    t0 = time.perf_counter()
+    for r in range(REPLICAS):
+        simulate(ts, plan, SIM_HW, Trace(mi, trace.arrival, scales[r][mi]), warmup_frac=0.0)
+    numpy_s = time.perf_counter() - t0
+    work = REPLICA_REQUESTS * REPLICAS
+    engine = {
+        "n_requests": REPLICA_REQUESTS, "n_replicas": REPLICAS, "card_wall_s": min(walls),
+        "card_events_s": min(events), "numpy_stepper_s": numpy_s,
+        "card_replica_requests_per_s": work / min(walls), "numpy_replica_requests_per_s": work / numpy_s,
+        "parity_worst_rel": worst,
+    }
+    print(f"  run_trace_replicas on the card: {min(walls):.4f} s wall, {min(events):.4f} s between CUDA events "
+          f"(best of 3) = {work / min(walls):.4g} replica-requests/s; NumPy stepper over the {REPLICAS} replicas "
+          f"{numpy_s:.3f} s = {work / numpy_s:.4g} replica-requests/s ({numpy_s / min(walls):.2f}x)")
+
+    (args, _), = tpu_calls
+    base, miss_load, g, tm, sc, x_init, c, l, n_models = args
+    r_, p_ = REPLICAS, base.numel()
+    b2 = op_entry(
+        "src/repro/serving/jax_stepper.py:161", lambda: torch_stepper._tpu_replicas(*args),
+        n_bytes=nbytes(base, miss_load, g, tm, sc, x_init) + 4 * r_ * p_ + 8 * r_ * n_models + 8 * r_,
+        n_ops=4 * r_ * p_, host_ms=numpy_s * 1e3, iters=5, shape=[r_, c, l],
+        note="host_numpy_ms is the whole NumPy stepper over the replicas",
+    )
+    (args3, _) = cpu_calls[0]
+    d_tpu, sel, g_host, svc, x0, c3, l3 = args3
+    n_i = sel.numel()
+    b3 = op_entry(
+        "src/repro/serving/jax_stepper.py:184", lambda: torch_stepper._cpu_replicas(*args3),
+        n_bytes=nbytes(sel, g_host, svc) + 2 * 4 * r_ * n_i + 8 * r_, n_ops=4 * r_ * n_i,
+        host_ms=None, iters=10, shape=[r_, c3, l3], calls_per_run=len(cpu_calls),
+    )
+    for key, row in (("B2", b2), ("B3", b3)):
+        print(f"  {key}: {row['ms']:.4f} ms a call on the card, {row['kernels']} kernels + {row['copies']} copies, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {row['bound_share']:.2%})")
+    device_breakdown("B2, one call", lambda: torch_stepper._tpu_replicas(*args))
+    return {"engine": engine, "B2": b2, "B3": b3}
+
+
+def feasible_plans(ts, k_max, n_plans=48, seed=2):
+    rng = np.random.default_rng(seed)
+    p_max = np.array([t.profile.num_partition_points for t in ts])
+    P = rng.integers(0, p_max + 1, size=(n_plans, len(ts)))
+    K = np.zeros_like(P)
+    keep = np.ones(n_plans, dtype=bool)
+    for b in range(n_plans):
+        try:
+            K[b] = prop_alloc(ts, P[b], k_max)
+        except ValueError:
+            keep[b] = False
+    return P[keep], K[keep]
+
+
+def phase_evaluator() -> dict:
+    """``TorchPlanEvaluator`` on the card against the NumPy batch, and
+    ``hill_climb(evaluator=...)`` against the NumPy batched climb; returns
+    B4's and B5's rows, timed per frontier call of the warm climb."""
+    rows = {}
+    extensions = 0
+    for name, (base_ts, _) in sim_mixes().items():
+        rates = np.random.default_rng(1).uniform(0.5, 4.0, len(base_ts))
+        ts = [TenantSpec(t.profile, float(r), deadline=0.5) for t, r in zip(base_ts, rates)]
+        k_max = max(4, len(ts))
+        et = EvalTables.build(ts, SIM_HW, k_max)
+        ev = TorchPlanEvaluator.from_tables(et, device=DEVICE)
+        P, K = feasible_plans(ts, k_max)
+        for disc in (FCFS, SWAP_BATCH):
+            want = latency.objective_batch(ts, P, K, SIM_HW, tables=et, discipline=disc)
+            got = ev.objective_batch(P, K, discipline=disc)
+            finite = np.isfinite(want)
+            err = float(np.max(np.abs(got[finite] / want[finite] - 1.0)))
+            if not (np.array_equal(np.isinf(want), np.isinf(got)) and err <= EVAL_RTOL):
+                raise AssertionError(f"{name} {disc.kind}: evaluator off the NumPy batch by {err:.3e}")
+            print(f"  {name} {disc.kind}: {len(P)} plans, max rel diff {err:.3e} (rtol {EVAL_RTOL})")
+        # A deadline-miss value is a rate-weighted sum of probabilities formed
+        # as 1 - (1 - p)(1 - q): float32 leaves ~1e-7 of each, so that sum
+        # (total rate ~16/s here) is held to 1e-6 absolute as well (the
+        # reference's JaxPlanEvaluator is off the NumPy batch by as much).
+        for obj, atol in ((p_tail(0.99), 1e-7), (deadline_miss(), 1e-6)):
+            want = latency.penalized_objective_batch(ts, P, K, SIM_HW, tables=et, objective=obj)
+            got = ev.penalized_objective_batch(P, K, objective=obj, deadlines=np.full(len(ts), 0.5))
+            if not np.allclose(got, want, rtol=EVAL_RTOL, atol=atol):
+                raise AssertionError(f"{name} {obj.kind}: evaluator off the NumPy batch")
+        cold, _ = hill_climb(ts, SIM_HW, k_max, tables=et, batch=True)
+        calls = []
+        with capturing(ev, "penalized_objective_batch", calls):
+            cold_dev, _ = hill_climb(ts, SIM_HW, k_max, evaluator=ev)
+            warm_dev, _ = hill_climb(ts, SIM_HW, k_max, evaluator=ev, init_plan=cold)
+        warm, _ = hill_climb(ts, SIM_HW, k_max, tables=et, batch=True, init_plan=cold)
+        sb, _ = hill_climb(ts, SIM_HW, k_max, tables=et, batch=True, discipline=SWAP_BATCH)
+        sb_dev, _ = hill_climb(ts, SIM_HW, k_max, evaluator=ev, discipline=SWAP_BATCH)
+        if (cold_dev, warm_dev, sb_dev) != (cold, warm, sb):
+            raise AssertionError(f"{name}: hill_climb on the card committed other plans")
+        print(f"  {name}: hill_climb plans identical cold, warm and under swap_batch ({len(calls)} calls "
+              f"in the cold + warm climbs)")
+        # Per frontier call: the largest batch the climbs scored, a full
+        # frontier of [4n, n] plans from the warm climb.
+        (fp, fk), _ = max(calls, key=lambda call: len(call[0][0]))
+        n_bytes = nbytes(ev.pstack, ev.pkstack, ev.rates, ev.svc_tab, ev.tl_tab) + 2 * fp.size * 8 + 2 * len(fp) * 4
+        for disc, key in ((FCFS, "fcfs"), (SWAP_BATCH, "swap_batch")):
+            _, host_ms = timed_host(lambda: latency.penalized_objective_batch(
+                ts, fp, fk, SIM_HW, tables=et, discipline=disc), reps=5)
+            before = ev.extensions
+            _, wall_ms = timed_host(lambda: ev.penalized_objective_batch(fp, fk, discipline=disc))
+            extended = ev.extensions > before
+            # About 30 float32 operations per tenant per sweep: one sweep for
+            # FCFS, 62 (+ 541 when extended) for swap_batch.
+            sweeps = 1 if key == "fcfs" else 62 + 541 * extended
+            rows[f"B4 {name} {key}"] = op_entry(
+                "src/repro/core/jax_eval.py:186",
+                lambda: ev.penalized_objective_batch(fp, fk, discipline=disc),
+                n_bytes=n_bytes, n_ops=sweeps * fp.size * 30, host_ms=host_ms, iters=5,
+                shape=list(fp.shape), call_wall_ms=wall_ms, extended=bool(extended),
+            )
+        obj = p_tail(0.99)
+        _, host_ms = timed_host(lambda: latency.penalized_objective_batch(
+            ts, fp, fk, SIM_HW, tables=et, objective=obj), reps=5)
+        _, wall_ms = timed_host(lambda: ev.penalized_objective_batch(fp, fk, objective=obj), reps=5)
+        rows[f"B5 {name} p_tail"] = op_entry(
+            "src/repro/core/jax_eval.py:102", lambda: ev.penalized_objective_batch(fp, fk, objective=obj),
+            n_bytes=n_bytes + nbytes(ev.ix_tab, ev.bnd_tab, ev.s1c_tab, ev.npoints), n_ops=fp.size * 60,
+            host_ms=host_ms, iters=10, shape=list(fp.shape), call_wall_ms=wall_ms,
+        )
+        if name == "thrash16":
+            device_breakdown("B4 thrash16 swap_batch, one frontier call",
+                             lambda: ev.penalized_objective_batch(fp, fk, discipline=SWAP_BATCH))
+        extensions += ev.extensions
+    # A mix whose damped fixed point does not settle in 60 sweeps
+    # (tests/test_torch_eval.py::test_swap_batch_extension): the masked
+    # 540-sweep extension runs on the card.  Row 0 is inf in float32 (as in
+    # the reference's JaxPlanEvaluator) where float64 settles; the others
+    # agree with the NumPy batch.
+    ts = [TenantSpec(paper_profile(n), r) for n, r in zip(
+        ("mnasnet", "mobilenetv2", "efficientnet"), (33.952794612593195, 15.90244329367047, 14.879704988613526))]
+    et = EvalTables.build(ts, SIM_HW, 4)
+    p_max = np.array([t.profile.num_partition_points for t in ts])
+    P = np.stack([p_max, p_max - 1, np.maximum(p_max - 2, 0)])
+    K = np.stack([prop_alloc(ts, row, 4) for row in P])
+    ev = TorchPlanEvaluator.from_tables(et, device=DEVICE)
+    got = ev.objective_batch(P, K, discipline=SWAP_BATCH)
+    want = latency.objective_batch(ts, P, K, SIM_HW, tables=et, discipline=SWAP_BATCH)
+    if not (ev.extensions == 1 and np.isinf(got[0]) and np.allclose(got[1:], want[1:], rtol=EVAL_RTOL)):
+        raise AssertionError(f"extension case: {got} on the card, NumPy {want}, extensions {ev.extensions}")
+    print(f"  extension case: the 540-sweep extension ran; {got} against NumPy {want}")
+    extensions += ev.extensions
+    for key, row in rows.items():
+        print(f"  {key} {row['shape']}: {row['ms']:.4f} ms a call on the card (CUDA events), {row['call_wall_ms']:.4f} ms "
+              f"wall with copies; {row['kernels']} kernels + {row['copies']} copies; NumPy {row['host_numpy_ms']:.4f} ms; "
+              f"bound {row['bound_ms']:.2e} ms ({row['bound_by']})")
+    print(f"  calls that ran the 540-sweep extension: {extensions}")
+    rows["extension_calls"] = extensions
+    return rows
+
+
+def phase_online() -> dict:
+    """``run_adaptive`` on the Fig. 8 trace: the device stepper and a
+    planner scoring each frontier on the card, against the defaults (host
+    stepper, NumPy planner)."""
+    profs = [paper_profile(n) for n in FIG8_MODELS]
+    trace = dynamic_trace(FIG8_PHASES, seed=5)
+    k_max = SIM_HW.cpu.n_cores
+
+    def planner(tenants, platform, k, *, tables=None, init_plan=None):
+        ev = TorchPlanEvaluator.build(tenants, platform, k, tables=tables, device=DEVICE)
+        return hill_climb(tenants, platform, k, evaluator=ev, init_plan=init_plan)
+
+    want, host_ms = timed_host(lambda: run_adaptive(profs, trace, SIM_HW, k_max, **FIG8_KW))
+    got, card_ms = timed_host(lambda: run_adaptive(
+        profs, trace, SIM_HW, k_max, backend="torch", device=DEVICE, planner=planner, **FIG8_KW))
+    if got.replan_times != want.replan_times or got.plans != want.plans:
+        raise AssertionError("run_adaptive on the card re-planned differently")
+    worst = 0.0
+    for m in range(len(profs)):
+        a, b = want.sim.mean_latency(m), got.sim.mean_latency(m)
+        worst = max(worst, abs(b - a) / a)
+        if not math.isclose(b, a, rel_tol=STAT_REL):
+            raise AssertionError(f"model {m}: mean {b} on the card vs {a}")
+    out = {
+        "replans": len(got.plans), "worst_mean_rel": worst,
+        "card_max_planner_ms": max(got.plan_compute_seconds) * 1e3,
+        "card_median_planner_ms": float(np.median(got.plan_compute_seconds)) * 1e3,
+        "numpy_max_planner_ms": max(want.plan_compute_seconds) * 1e3,
+        "numpy_median_planner_ms": float(np.median(want.plan_compute_seconds)) * 1e3,
+        "card_run_ms": card_ms, "host_run_ms": host_ms,
+    }
+    print(f"  {len(got.plans)} re-plans, identical times and plans; worst per-model mean rel diff {worst:.3e}; "
+          f"planner ms per re-plan, max / median: card evaluator {out['card_max_planner_ms']:.3f} / "
+          f"{out['card_median_planner_ms']:.3f}, NumPy {out['numpy_max_planner_ms']:.3f} / "
+          f"{out['numpy_median_planner_ms']:.3f}; whole run {card_ms:.1f} ms (torch backend) vs {host_ms:.1f} ms (stepper)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
@@ -896,6 +1342,11 @@ def main() -> int:
         f"{str(dt)[6:]} hd {key[3]}": wkv_route(dt, key[3])
         for (k, key, dt) in calls if k == "wkv6"
     } | {f"float32 hd {ARCHS['rwkv6-7b'].resolved_head_dim}": wkv_route(torch.float32, ARCHS['rwkv6-7b'].resolved_head_dim)}
+    torch_ops = {"B1": phase("torch ops: lindley_ends on the card (B1)", phase_lindley)}
+    torch_ops["backends"] = phase("torch ops: simulate(backend='torch') against the stepper", phase_backends)
+    torch_ops.update(phase("torch ops: the replica engine (B2, B3)", phase_replicas))
+    torch_ops.update(phase("torch ops: the plan evaluator (B4, B5)", phase_evaluator))
+    torch_ops["online"] = phase("torch ops: online control on the Fig. 8 trace", phase_online)
     times = {"block_matmul": phase("times: block_matmul", phase_times, matmul_k)}
     times.update(phase("times: flash_attention and wkv6", phase_zoo_times, calls))
 
@@ -918,6 +1369,7 @@ def main() -> int:
             **({"sass_hmma": hmma, "routes": wkv_routes} if name == "wkv6" else {}),
         })
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.2f} s")
+    print(json.dumps({"torch_ops": torch_ops}))
     print(json.dumps({"kernels": line}))
     print(json.dumps({
         "ok": True,

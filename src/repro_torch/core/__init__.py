@@ -1,7 +1,8 @@
-"""Analytic queueing model and the Algorithm 1 planner (host NumPy).
+"""Analytic queueing model, the Algorithm 1 planner, the plan cache and the
+fleet planner (host NumPy); the device plan evaluator is
+``repro_torch.core.torch_eval``.
 
-Re-exports the reference's public names that the port holds; the fleet
-planner (``fleet``) and the plan cache (``plan_cache``) are not ported yet.
+Re-exports the reference's public names, with the reference's import lines.
 """
 from repro_torch.core.planner import (
     ModelProfile,
@@ -14,6 +15,22 @@ from repro_torch.core.planner import (
     validate_plan,
 )
 from repro_torch.core.plan_tables import EvalTables, PlanTables
+from repro_torch.core.fleet import (
+    DeviceSpec,
+    FleetPlan,
+    FleetTablesCache,
+    fleet_hill_climb,
+    fleet_plan_objective,
+    round_robin_fleet_plan,
+    validate_fleet_plan,
+)
+from repro_torch.core.plan_cache import (
+    CacheStats,
+    FleetPlanCache,
+    PlanCache,
+    mix_fingerprint,
+    quantize_rates,
+)
 from repro_torch.core.queueing import (
     mdk_wait,
     mdk_wait_batch,
@@ -44,10 +61,16 @@ from repro_torch.core.allocator import (
 )
 
 __all__ = [
+    "CacheStats",
+    "DeviceSpec",
     "EvalTables",
+    "FleetPlan",
+    "FleetPlanCache",
+    "FleetTablesCache",
     "LatencyBreakdown",
     "ModelProfile",
     "Plan",
+    "PlanCache",
     "PlanTables",
     "Segment",
     "SystemPrediction",
@@ -55,10 +78,13 @@ __all__ = [
     "aggregate_footprint",
     "brute_force_oracle",
     "edge_tpu_compiler_plan",
+    "fleet_hill_climb",
+    "fleet_plan_objective",
     "hill_climb",
     "intra_swap_bytes",
     "load_time",
     "mdk_wait",
+    "mix_fingerprint",
     "mdk_wait_batch",
     "mg1_wait",
     "mg1_wait_batch",
@@ -72,10 +98,13 @@ __all__ = [
     "prefix_service_time",
     "prop_alloc",
     "prop_alloc_batch",
+    "quantize_rates",
+    "round_robin_fleet_plan",
     "swapless_alpha0_plan",
     "swapless_plan",
     "threshold_plan",
     "tpu_arrival_rate",
+    "validate_fleet_plan",
     "validate_plan",
     "weight_miss_probs",
 ]

@@ -245,11 +245,11 @@ def hill_climb(
       FCFS objective, so they share one climb and a space of only such
       specs returns the FCFS plan unchanged.
 
-    JAX scoring (``evaluator``):
+    Device scoring (``evaluator``):
 
-    * ``evaluator`` plugs a ``repro.core.jax_eval.JaxPlanEvaluator`` (built
-      for exactly these tenants/rates/platform) into the batched walk: every
-      iteration scores the *whole* fixed-shape move frontier in one jitted
+    * ``evaluator`` plugs a ``repro_torch.core.torch_eval.TorchPlanEvaluator``
+      (built for exactly these tenants/rates/platform) into the batched walk:
+      every iteration scores the *whole* fixed-shape move frontier in one
       device call (invalid and infeasible moves ride along as copies of the
       incumbent and are masked to ``inf`` on the host, so one compiled
       shape serves the entire climb).  The NumPy batched path stays the
@@ -408,7 +408,7 @@ def hill_climb(
             break
         if evaluator is not None:
             # Fixed-shape frontier: every (m, h) move scored each iteration
-            # so the jitted evaluator compiles once per mix shape.  Invalid
+            # so the device evaluator sees one shape per mix.  Invalid
             # moves ride along as copies of the incumbent row and are
             # masked out after scoring.
             cpos_c = np.where(valid, cpos, pos[move_m])

@@ -4,7 +4,7 @@ The paper's planner minimizes the *mean* end-to-end response time (Eq. 5,
 ``sum_i lambda_i * T_i``).  Real multi-tenant deployments contract on SLOs
 -- per-tenant p99 budgets and deadline-miss rates -- so every evaluator
 (``latency.penalized_objective`` scalar reference, the ``EvalTables``
-batched + delta paths, ``JaxPlanEvaluator``, ``fleet_plan_objective``) and
+batched + delta paths, ``TorchPlanEvaluator``, ``fleet_plan_objective``) and
 both adaptive controllers accept an ``objective=`` spec:
 
 * ``MEAN`` (or ``objective=None``, the default): Eq. 5 exactly.  The

@@ -35,13 +35,16 @@ impossible plan.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
 
 from repro_torch.core import queueing
 from repro_torch.core.planner import ModelProfile, TenantSpec
 from repro_torch.hw.specs import Platform
+
+if TYPE_CHECKING:
+    import torch
 
 _PAD = np.nan
 
@@ -288,3 +291,12 @@ class EvalTables:
         return self.base.matches(tenants, platform) and all(
             t.rate == r for t, r in zip(tenants, self.rates)
         )
+
+    def to_torch(self, device: "str | torch.device" = "cuda"):
+        """Device-resident ``repro_torch.core.torch_eval.TorchPlanEvaluator``
+        over these tables (float32, statistical-equivalence contract; the
+        NumPy evaluator over ``self`` stays the bitwise reference).
+        Imported lazily so this module keeps zero accelerator dependencies."""
+        from repro_torch.core.torch_eval import TorchPlanEvaluator
+
+        return TorchPlanEvaluator.from_tables(self, device=device)

@@ -29,8 +29,7 @@ recurrences.  Two execution paths share that definition:
   ``tests/test_sim_fastpath.py``.
 
 The stepper shares structure with the analytic recurrences, so the
-independent event-driven backend (the reference's ``repro.serving.des``,
-not yet ported) is the ground
+independent event-driven backend (``repro_torch.serving.des``) is the ground
 truth the model is validated against; both implement the same driver
 surface (``offer`` / ``advance_to`` / ``set_plan`` / ``drain`` /
 ``result``) over the shared ``Request`` trace and ``SimResult`` record,
@@ -42,7 +41,7 @@ from __future__ import annotations
 import heapq
 import itertools
 import math
-from typing import Sequence
+from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
 
@@ -62,6 +61,9 @@ from repro_torch.serving.scheduling import (
     make_discipline,
 )
 from repro_torch.serving.workload import Request, Trace
+
+if TYPE_CHECKING:
+    import torch
 
 __all__ = ["RuntimeSimulator", "SimResult", "simulate", "make_backend"]
 
@@ -594,8 +596,8 @@ class RuntimeSimulator:
 
         The one recurrence hook backends may re-implement: the NumPy
         stepper uses the exact ``_server_ends`` fixpoint (bitwise-pinned
-        reference); ``serving.jax_stepper.JaxStepper`` overrides it with
-        a jitted float32 max-plus scan under the statistical-equivalence
+        reference); ``serving.torch_stepper.TorchStepper`` overrides it with
+        a float32 max-plus scan on the device under the statistical-equivalence
         contract.  Everything else in ``run_trace`` is shared.
         """
         return _server_ends(enqueue, service, free0)
@@ -827,7 +829,7 @@ class RuntimeSimulator:
                         self.latencies[i].append(lat_r[keep])
                         self.arrivals[i].append(arr_r[keep])
 
-    # -- shared driver surface (see the reference's repro.serving.des) -----
+    # -- shared driver surface (see repro_torch.serving.des) -----------------
     def offer(self, req: Request, *, record: bool = True) -> None:
         """Driver-contract entry: requests must be offered in arrival order.
 
@@ -889,8 +891,24 @@ def _flat(parts: list):
     )
 
 
-def _stepper_factory(profiles, plan, platform, faults=None):
+def _stepper_factory(profiles, plan, platform, faults=None, device=None):
     return RuntimeSimulator(profiles, plan, platform, faults=faults)
+
+
+def _torch_factory(profiles, plan, platform, faults=None, device="cuda"):
+    # Local import: the host backends must not pay the device stepper's
+    # import unless the caller opted in.
+    from repro_torch.serving.torch_stepper import TorchStepper
+
+    return TorchStepper(profiles, plan, platform, faults=faults, device=device)
+
+
+def _des_factory(profiles, plan, platform, faults=None, device=None):
+    # Local import: des.py imports the shared result/workload modules
+    # only, so the dependency stays one-way at module-load time.
+    from repro_torch.serving.des import DiscreteEventSimulator
+
+    return DiscreteEventSimulator(profiles, plan, platform, faults=faults)
 
 
 # Name -> lazy constructor.  The registry is the single source of truth for
@@ -898,6 +916,8 @@ def _stepper_factory(profiles, plan, platform, faults=None):
 # layer); the error path lists its keys so a typo names every valid choice.
 _BACKENDS = {
     "stepper": _stepper_factory,
+    "des": _des_factory,
+    "torch": _torch_factory,
 }
 
 
@@ -908,12 +928,16 @@ def make_backend(
     platform: Platform,
     *,
     faults=None,
+    device: "str | torch.device" = "cuda",
 ):
     """Instantiate a serving-simulation backend by name.
 
-    ``"stepper"`` is the sequential ``RuntimeSimulator``, the only backend
-    of this package so far (the event-driven DES and the device stepper
-    are still to port).
+    ``"stepper"`` is the sequential ``RuntimeSimulator``; ``"des"`` the
+    event-driven ``DiscreteEventSimulator`` (the validation ground truth);
+    ``"torch"`` the ``TorchStepper`` -- the stepper with its Lindley
+    recurrences evaluated on ``device`` (float32, statistically equivalent,
+    opt-in).  Only ``"torch"`` reads ``device``: the host backends need no
+    card, and nothing imports the device stepper unless asked for.
     """
     try:
         factory = _BACKENDS[backend]
@@ -922,7 +946,7 @@ def make_backend(
         raise ValueError(
             f"unknown backend {backend!r}: valid backends are {valid}"
         ) from None
-    return factory(profiles, plan, platform, faults=faults)
+    return factory(profiles, plan, platform, faults=faults, device=device)
 
 
 def ensure_sorted(requests: "Trace | Sequence[Request]"):
@@ -961,13 +985,14 @@ def simulate(
     backend: str = "stepper",
     vectorize: bool = True,
     faults=None,
+    device: "str | torch.device" = "cuda",
 ) -> SimResult:
     """Run a static-plan simulation over a request trace.
 
     ``warmup_frac``: leading fraction of the trace excluded from statistics
     (cold-start cache fills; the paper measures steady state).
-    ``backend``: ``"stepper"`` (the only backend ported so far; the DES
-    is still to port).
+    ``backend``: ``"stepper"`` (default), ``"des"`` or ``"torch"`` -- same
+    contract, independent mechanics; ``device`` is where ``"torch"`` runs.
     ``vectorize``: with a columnar ``Trace``, resolve the whole trace through
     the fast driver -- the vectorized ``run_trace`` on the stepper, the
     inlined columnar ``offer_trace`` on the DES (default); ``False`` forces
@@ -977,12 +1002,13 @@ def simulate(
     the ``None`` default is bitwise the pre-fault simulator.
     """
     sim = make_backend(
-        backend, [t.profile for t in tenants], plan, platform, faults=faults
+        backend, [t.profile for t in tenants], plan, platform, faults=faults,
+        device=device,
     )
     reqs, horizon = sorted_trace_and_horizon(requests)
     warmup_t = horizon * warmup_frac
     if vectorize and isinstance(reqs, Trace):
-        if backend in ("stepper", "jax"):
+        if backend in ("stepper", "torch"):
             sim.run_trace(reqs, record_from=warmup_t)
         else:
             sim.offer_trace(reqs, record_from=warmup_t)

@@ -107,5 +107,8 @@ def test_stepper_means_are_identical(names, rates, k_max):
 
 
 def test_only_the_stepper_backend_is_ported():
-    with pytest.raises(ValueError, match="stepper"):
-        simulator.make_backend("des", [], None, specs.EDGE_TPU_PLATFORM)
+    """The port's backends are the stepper, its device twin ``"torch"`` and
+    the DES; the reference's ``"jax"`` backend has no counterpart."""
+    assert sorted(simulator._BACKENDS) == ["des", "stepper", "torch"]
+    with pytest.raises(ValueError, match="'stepper', 'des', 'torch'"):
+        simulator.make_backend("jax", [], None, specs.EDGE_TPU_PLATFORM)

@@ -14,24 +14,8 @@ from pathlib import Path
 import pytest
 
 NOT_YET_PORTED = {
-    "core": (
-        # core/plan_cache.py
-        "CacheStats", "FleetPlanCache", "PlanCache", "mix_fingerprint", "quantize_rates",
-        # core/fleet.py
-        "DeviceSpec", "FleetPlan", "FleetTablesCache", "fleet_hill_climb",
-        "fleet_plan_objective", "round_robin_fleet_plan", "validate_fleet_plan",
-    ),
-    "serving": (
-        # serving/des.py
-        "DiscreteEventSimulator",
-        # serving/controller.py
-        "AdaptiveRunResult", "SlidingRateEstimator", "run_adaptive",
-        # serving/forecast.py
-        "EwmaTrendForecaster", "NeverForecaster", "OracleForecaster",
-        "PeriodicForecaster", "RateForecaster", "piecewise_rate_fn",
-        # serving/fleet.py
-        "FleetAdaptiveResult", "offered_device_loads", "run_adaptive_fleet", "simulate_fleet",
-    ),
+    "core": (),
+    "serving": (),
     "hw": ("TPU_V5E", "TPU_V5E_SERVING_PLATFORM", "TPUChipSpec"),
 }
 
@@ -57,15 +41,19 @@ def test_every_listed_name_imports(package):
 
 
 def test_reference_idiom_imports_without_jax():
-    """``from repro_torch.core import Plan`` and the CNN module (which
-    imports ``serving.engine``) import in a fresh interpreter, with neither
-    JAX nor the reference package loaded."""
+    """``from repro_torch.core import Plan``, the CNN module (which imports
+    ``serving.engine``), the simulators, the device stepper and evaluator,
+    the controller and the fleet layers import in a fresh interpreter, with
+    neither JAX nor the reference package loaded."""
     code = (
         "import sys\n"
         "from repro_torch.core import Plan, swapless_plan\n"
         "from repro_torch.serving import ServingEngine, poisson_trace\n"
         "from repro_torch.hw import EDGE_TPU_PLATFORM\n"
         "import repro_torch.models.cnn\n"
+        "import repro_torch.serving.des, repro_torch.serving.torch_stepper\n"
+        "import repro_torch.serving.controller, repro_torch.serving.fleet\n"
+        "import repro_torch.core.torch_eval, repro_torch.core.fleet\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
     )

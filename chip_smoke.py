@@ -27,14 +27,24 @@ and prints no result line):
 5. where the time goes: warm requests one at a time (closed loop) under
    the SwapLess plan, and each stage's time on the card and on one host
    core;
-6. model-zoo path: ``prefill_step`` of 2 x 2048-token prompts and 32 greedy
-   ``decode_step``s of gemma3-1b and then rwkv6-7b, bfloat16, full width
-   and depth, each kernel's launches counted and the shapes it was called at
-   recorded; then each new kernel against its plain version at those shapes
-   (wkv6 at mild and strong decays);
-7. model-zoo correctness: float32, full width and depth, the full forward
-   (kernels on every layer) against ``prefill_step`` of 16 tokens plus
-   teacher-forced ``decode_step``s (which launch no hand kernel);
+6. model-zoo path: ``prefill_step`` of 2 prompts of 2048 positions and 32
+   ``decode_step``s, bfloat16, full width, of gemma3-1b and rwkv6-7b (full
+   depth), hymba-1.5b (full depth, chunked scan), phi-3-vision-4.2b (full
+   depth, 256 patches + 1792 text tokens), musicgen-large (full depth,
+   frame embeddings, random frames in decode), grok-1-314b (4 of 64
+   layers) and llama4-maverick (2 of 48 layers), one model at a time; each
+   kernel's launches counted, the shapes it was called at recorded, device
+   time by kernel and the MoE and chunked-scan ranges' share; then each
+   kernel against its plain version at those shapes (flash_attention with
+   its route per shape, hd 96 on the CUDA cores; wkv6 at mild and strong
+   decays);
+7. model-zoo correctness: float32, full width, full depth for gemma3-1b and
+   rwkv6-7b and reduced depth for the others: the full forward (kernels on
+   every layer) against ``prefill_step`` of 16 positions (after the
+   patches) plus teacher-forced ``decode_step``s (which launch no hand
+   kernel), MoE layers at a capacity with no drops; then hymba's SSM heads
+   at full width on 256 tokens, the sequential scan against the chunked
+   one (also at strong decays);
 8. the device stepper's recurrence: ``lindley_ends`` on the card at 7,
    4097 and 2^20 requests (a clock past 5,000 s) against the float64
    ``_server_ends``, within 2e-6 s of delay;
@@ -66,6 +76,7 @@ with one entry per kernel; the last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib.util
 import json
 import math
@@ -103,7 +114,7 @@ from repro_torch.kernels.matmul import route as matmul_route  # noqa: E402
 from repro_torch.kernels.wkv6 import route as wkv_route  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6, wkv6_plain  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import attention, cnn, rwkv  # noqa: E402
+from repro_torch.models import attention, cnn, frontend, moe, rwkv, ssm  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving import torch_stepper  # noqa: E402
@@ -473,18 +484,51 @@ def phase_times(kernel: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
-# Model zoo: prefill and decode of gemma3-1b (flash_attention) and rwkv6-7b
-# (wkv6) at full width and depth
+# Model zoo: prefill and decode of every family at full width: gemma3-1b
+# and rwkv6-7b (the wkv6 kernel), hymba-1.5b (parallel SSM heads, window
+# 1024), phi-3-vision-4.2b (vision frontend, head_dim 96), musicgen-large
+# (audio frontend), grok-1-314b and llama4-maverick (mixture of experts)
 # --------------------------------------------------------------------------
-ZOO = ("gemma3-1b", "rwkv6-7b")
+ZOO = {
+    "gemma3-1b": ARCHS["gemma3-1b"],
+    "rwkv6-7b": ARCHS["rwkv6-7b"],
+    # The reference's §Perf setting, as launch/dryrun.py serves hymba.
+    "hymba-1.5b": dataclasses.replace(ARCHS["hymba-1.5b"], use_chunked_scan=True),
+    "phi-3-vision-4.2b": ARCHS["phi-3-vision-4.2b"],
+    "musicgen-large": ARCHS["musicgen-large"],
+    # Depth cut to fit one 80 GB card in bfloat16: 4 of 64 layers (about
+    # 40 GB), and 2 of 48 (one dense, one MoE layer of 128 experts; 37 GB).
+    "grok-1-314b": dataclasses.replace(ARCHS["grok-1-314b"], n_layers=4),
+    "llama4-maverick-400b-a17b": dataclasses.replace(ARCHS["llama4-maverick-400b-a17b"], n_layers=2),
+}
 # Cut from INPUT_SHAPES["prefill_32k"] (32 prompts of 32768 tokens) to stay
 # within the smoke run's time; 2048 is the reference's CHUNKED_SEQ_THRESHOLD
-# and four of gemma3-1b's 512-token windows.
+# and four of gemma3-1b's 512-token windows.  phi-3-vision's 2048 positions
+# are its 256 patches and 1792 text tokens.
 ZOO_BATCH, ZOO_PROMPT, ZOO_DECODE = 2, 2048, 32
 ZOO_PROFILE_DECODE = 4   # decode steps under the profiler (its post-processing grows with events)
-ZOO_CHECK_LEN = {"gemma3-1b": 1024, "rwkv6-7b": 256}   # f32 check: 2 windows; 8 wkv chunks
-ZOO_CHECK_PREFILL = 16
+# float32 check: (config, positions).  gemma3-1b: 2 windows; rwkv6-7b: 8
+# wkv chunks; hymba: past its 1024-token window, 34 scan chunks; the
+# others at reduced depth so that float32 weights fit the card (llama4's
+# MoE layer alone is 64 GB).  MoE layers take a capacity factor with which
+# no group can drop a token (8.0, as tests/test_prefill_decode.py, and
+# E / k = 128 for llama4): prefill's groups would otherwise drop tokens
+# that one-token decode never drops, and the invariant holds only without
+# drops.
+ZOO_CHECK = {
+    "gemma3-1b": (ARCHS["gemma3-1b"], 1024),
+    "rwkv6-7b": (ARCHS["rwkv6-7b"], 256),
+    "hymba-1.5b": (dataclasses.replace(ZOO["hymba-1.5b"], n_layers=4), 1088),
+    "phi-3-vision-4.2b": (dataclasses.replace(ARCHS["phi-3-vision-4.2b"], n_layers=2), 384),
+    "musicgen-large": (dataclasses.replace(ARCHS["musicgen-large"], n_layers=2), 256),
+    "grok-1-314b": (dataclasses.replace(ARCHS["grok-1-314b"], n_layers=1, capacity_factor=8.0), 128),
+    "llama4-maverick-400b-a17b": (
+        dataclasses.replace(ARCHS["llama4-maverick-400b-a17b"], n_layers=2, capacity_factor=128.0), 128,
+    ),
+}
+ZOO_CHECK_PREFILL = 16   # text tokens or frames; the vision frontend's patches come first
 ZOO_CHECK_TOL = 2e-3   # tests/test_prefill_decode.py's prefill tolerance
+SCAN_LEN, SCAN_TOL = 256, 1e-3   # hymba's sequential scan against the chunked one
 FLASH_TOL = {torch.float32: 5e-4, torch.bfloat16: 3e-2}   # TestFlashAttention
 WKV_TOL = 2e-3                                             # TestWKV6
 # (B, S, H, KV, hd, window): TestFlashAttention's shapes, a property-sweep
@@ -610,22 +654,28 @@ def launch_counts() -> dict[str, int]:
     return {k["name"]: k["wrapper"].launches for k in KERNELS}
 
 
-def serve_prompts(cfg, params, tokens, timed: bool):
-    """prefill_step on ``tokens``, then ZOO_DECODE greedy decode_steps.
+def serve_prompts(cfg, params, batch, timed: bool):
+    """prefill_step on ``batch``, then ZOO_DECODE decode_steps: greedy
+    tokens, or for the audio frontend seeded random frame embeddings, as
+    ``make_decode_token`` draws them (drawn before the clock starts).
     Returns (launches after prefill, launches after decode, all logits
-    finite, prefill ms, decode ms per token); the times are CUDA events
-    when ``timed``."""
-    max_len = tokens.shape[1] + ZOO_DECODE
+    finite, prefill ms, decode ms per step); the times are CUDA events when
+    ``timed``."""
+    max_len = ZOO_PROMPT + ZOO_DECODE
+    frames = [
+        frontend.make_decode_token(cfg, ZOO_BATCH, seed=1000 + i, device=DEVICE)
+        for i in range(ZOO_DECODE)
+    ] if cfg.frontend == "audio" else None
     start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     torch.cuda.synchronize()
     start.record()
-    logits, caches = tf.prefill_step(cfg, params, {"tokens": tokens}, max_len)
+    logits, caches = tf.prefill_step(cfg, params, batch, max_len)
     mid.record()
     after_prefill = launch_counts()
     finite = torch.isfinite(logits).all()
     for i in range(ZOO_DECODE):
-        nxt = logits[:, -1].argmax(dim=-1, keepdim=True)
-        logits, caches = tf.decode_step(cfg, params, caches, nxt, tokens.shape[1] + i)
+        nxt = frames[i] if frames else logits[:, -1].argmax(dim=-1, keepdim=True)
+        logits, caches = tf.decode_step(cfg, params, caches, nxt, ZOO_PROMPT + i)
         finite &= torch.isfinite(logits).all()
     end.record()
     end.synchronize()
@@ -634,24 +684,53 @@ def serve_prompts(cfg, params, tokens, timed: bool):
     return after_prefill, launch_counts(), bool(finite), prefill_ms, decode_ms
 
 
+# Model functions whose device time the profiled prefill reports as a
+# range of its own: (module, attribute).
+RANGES = [(moe, "moe_ffn"), (ssm, "selective_scan_chunked")]
+
+
+@contextlib.contextmanager
+def profiler_ranges():
+    """Wrap each of RANGES in a ``torch.profiler.record_function`` of its
+    name; the functions are unchanged otherwise."""
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr in RANGES]
+
+    def ranged(fn, name):
+        def call(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return call
+
+    for mod, attr, fn in saved:
+        setattr(mod, attr, ranged(fn, attr))
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
 def device_breakdown(label: str, fn) -> None:
-    """Device time by kernel over one call of ``fn`` (torch.profiler), and the
-    share of the wall time in which the device was busy.  The profiler's own
+    """Device time by kernel over one call of ``fn`` (torch.profiler), the
+    share of the wall time in which the device was busy, and the device
+    time of the kernels launched inside each of RANGES.  The profiler's own
     host overhead lengthens the wall time, so that share is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    names = {attr for _, attr in RANGES}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiler_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
     kernels = sorted(
         (
             (e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
+            for e in events
+            if e.device_type == DeviceType.CUDA and e.key not in names
         ),
         reverse=True,
     )
@@ -665,43 +744,55 @@ def device_breakdown(label: str, fn) -> None:
     )
     for t, n, key in kernels[:8]:
         print(f"    {t:10.3f} ms {t / busy:8.2%}  x{n:<6} {key[:100]}")
+    for e in events:
+        if e.key in names and e.device_type == DeviceType.CPU and e.count:
+            t = e.device_time_total / 1e3
+            print(f"    range {e.key} x{e.count}: kernels inside it {t:.3f} ms, {t / busy:.2%} of the device time")
 
 
 def phase_zoo_path(name: str, calls: Counter) -> dict[str, int]:
-    """Serve ZOO_BATCH prompts of ZOO_PROMPT tokens of ``name`` in bfloat16
-    at full width and depth; returns each kernel's launches in one prefill
-    and decode."""
-    cfg = ARCHS[name]
+    """Serve ZOO_BATCH prompts of ZOO_PROMPT positions of ``name`` in
+    bfloat16 at full width (at the depth ZOO gives); returns each kernel's
+    launches in one prefill and decode."""
+    cfg = ZOO[name]
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
-    tokens = torch.randint(
-        0, cfg.vocab_size, (ZOO_BATCH, ZOO_PROMPT), device=DEVICE,
-        generator=torch.Generator(device=DEVICE).manual_seed(1),
-    )
+    # Token ids; for the vision frontend its patch embeddings and the text
+    # after them; for the audio frontend frame embeddings.
+    batch = frontend.make_train_batch(cfg, ZOO_BATCH, ZOO_PROMPT, seed=1, device=DEVICE)
+    del batch["labels"]
+    depth = ARCHS[name].n_layers
     print(
-        f"{name}: {tf.count_params(cfg) / 1e9:.3f} B parameters in bfloat16, "
-        f"init {time.perf_counter() - t0:.2f} s"
+        f"{name}: {tf.count_params(cfg) / 1e9:.3f} B parameters "
+        + (f"({tf.count_params(cfg, active_only=True) / 1e9:.3f} B active a token) " if cfg.is_moe else "")
+        + f"in bfloat16, {cfg.n_layers} layers"
+        + (f" (cut from {depth})" if cfg.n_layers != depth else "")
+        + f", init {time.perf_counter() - t0:.2f} s; prompt inputs "
+        + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
     )
     for k in KERNELS:
         k["wrapper"].launches = 0
     with recording_kernel_calls(calls):
-        after_prefill, after_decode, finite, _, _ = serve_prompts(cfg, params, tokens, timed=False)
+        after_prefill, after_decode, finite, _, _ = serve_prompts(cfg, params, batch, timed=False)
     want = {
         "block_matmul": 0,
-        "flash_attention": cfg.n_layers if cfg.block == "transformer" else 0,
+        "flash_attention": cfg.n_layers if cfg.block in ("transformer", "hymba") else 0,
         "wkv6": cfg.n_layers if cfg.block == "rwkv6" else 0,
     }
     print(f"  launches: after prefill {after_prefill}, after {ZOO_DECODE} decode steps {after_decode}")
     assert after_prefill == after_decode == want, (after_prefill, after_decode, want)
     assert finite, f"{name}: non-finite logits"
-    _, _, finite, prefill_ms, decode_ms = serve_prompts(cfg, params, tokens, timed=True)
+    _, _, finite, prefill_ms, decode_ms = serve_prompts(cfg, params, batch, timed=True)
     assert finite, f"{name}: non-finite logits"
     peak = torch.cuda.max_memory_allocated() / 2**30
     max_len = ZOO_PROMPT + ZOO_DECODE
-    device_breakdown("one prefill", lambda: tf.prefill_step(cfg, params, {"tokens": tokens}, max_len))
-    logits, caches = tf.prefill_step(cfg, params, {"tokens": tokens}, max_len)
-    nxt = logits[:, -1].argmax(dim=-1, keepdim=True)
+    device_breakdown("one prefill", lambda: tf.prefill_step(cfg, params, batch, max_len))
+    logits, caches = tf.prefill_step(cfg, params, batch, max_len)
+    nxt = (
+        frontend.make_decode_token(cfg, ZOO_BATCH, seed=1000, device=DEVICE)
+        if cfg.frontend == "audio" else logits[:, -1].argmax(dim=-1, keepdim=True)
+    )
 
     def decode_steps():
         for i in range(ZOO_PROFILE_DECODE):
@@ -711,31 +802,35 @@ def phase_zoo_path(name: str, calls: Counter) -> dict[str, int]:
     del logits, caches
     full = INPUT_SHAPES["prefill_32k"]
     print(
-        f"  warm: prefill of {ZOO_BATCH} x {ZOO_PROMPT} tokens {prefill_ms:.3f} ms, "
-        f"decode {decode_ms:.3f} ms per step of {ZOO_BATCH} tokens, all logits finite, "
+        f"  warm: prefill of {ZOO_BATCH} x {ZOO_PROMPT} positions {prefill_ms:.3f} ms, "
+        f"decode {decode_ms:.3f} ms per step of {ZOO_BATCH} positions, all logits finite, "
         f"peak memory {peak:.2f} GiB (batch and length cut from {full.name}'s "
         f"{full.global_batch} x {full.seq_len}); {time.perf_counter() - t0:.2f} s"
     )
-    del params
+    del params, batch
     torch.cuda.empty_cache()
     return {k: v for k, v in after_decode.items() if v}
 
 
 def phase_zoo_check(name: str) -> None:
-    """float32 at full width and depth: the full forward of T tokens
-    (kernels on every layer) against prefill_step of the first
-    ZOO_CHECK_PREFILL tokens plus teacher-forced decode_steps, which launch
-    no hand kernel; logits within ZOO_CHECK_TOL and the same argmax at
-    every position."""
-    cfg, t_len = ARCHS[name], ZOO_CHECK_LEN[name]
+    """float32 at full width (at ZOO_CHECK's depth): the full forward of T
+    positions (kernels on every layer) against prefill_step of the patches
+    and the first ZOO_CHECK_PREFILL tokens or frames plus teacher-forced
+    decode_steps, which launch no hand kernel; logits within ZOO_CHECK_TOL
+    and the same argmax at every position."""
+    cfg, t_len = ZOO_CHECK[name]
     t0 = time.perf_counter()
     params = tf.init_params(
         cfg, torch.Generator(device=DEVICE).manual_seed(2), device=DEVICE, dtype=torch.float32
     )
-    tokens = torch.randint(
-        0, cfg.vocab_size, (1, t_len), device=DEVICE, generator=torch.Generator(device=DEVICE).manual_seed(3)
-    )
-    full = tf.unembed(cfg, params, tf.backbone(cfg, params, tf.embed_inputs(cfg, params, {"tokens": tokens})))[0]
+    batch = frontend.make_train_batch(cfg, 1, t_len, seed=3, device=DEVICE)
+    del batch["labels"]
+    key = "frame_embeds" if cfg.frontend == "audio" else "tokens"
+    seq = batch.pop(key)                               # the inputs decode takes one at a time
+    n_patches = t_len - seq.shape[1]
+    h, _ = tf.embed_inputs(cfg, params, {**batch, key: seq})
+    full = tf.unembed(cfg, params, tf.backbone(cfg, params, h)[0])[0]
+    del h
     errs = torch.zeros(t_len, device=DEVICE)
     excess = torch.zeros(t_len, device=DEVICE)       # max(|a - b| - tol * |b|) per position
     agree = torch.zeros(t_len, dtype=torch.bool, device=DEVICE)
@@ -750,25 +845,80 @@ def phase_zoo_check(name: str) -> None:
         top2 = want.topk(2).values
         gap[t] = top2[0] - top2[1]
 
-    p = ZOO_CHECK_PREFILL
-    logits, caches = tf.prefill_step(cfg, params, {"tokens": tokens[:, :p]}, max_len=t_len)
+    first = ZOO_CHECK_PREFILL
+    p = n_patches + first
+    logits, caches = tf.prefill_step(cfg, params, {**batch, key: seq[:, :first]}, max_len=t_len)
     compare(p - 1, logits[0, 0])
-    for t in range(p, t_len):
-        logits, caches = tf.decode_step(cfg, params, caches, tokens[:, t : t + 1], t)
-        compare(t, logits[0, 0])
+    for j in range(first, seq.shape[1]):
+        logits, caches = tf.decode_step(cfg, params, caches, seq[:, j : j + 1], n_patches + j)
+        compare(n_patches + j, logits[0, 0])
     span = slice(p - 1, t_len)
     worst, worst_excess = float(errs[span].max()), float(excess[span].max())
     n_agree, n = int(agree[span].sum()), t_len - p + 1
+    depth = ARCHS[name].n_layers
+    notes = [f"{cfg.n_layers} of {depth} layers" if cfg.n_layers != depth else "full depth"]
+    if n_patches:
+        notes.append(f"{n_patches} patches first")
+    if cfg.is_moe:
+        notes.append(f"capacity factor {cfg.capacity_factor}: no group drops a token")
+    if cfg.block == "hymba":
+        notes.append(f"chunked scan {cfg.use_chunked_scan} in the forward and prefill, sequential in decode")
     print(
-        f"{name} float32, {t_len} tokens: full forward vs prefill of {p} + {t_len - p} decode steps: "
-        f"max_abs_err={worst:.3e} (|logit| up to {float(full.abs().max()):.2f}), tol {ZOO_CHECK_TOL} abs + rel, "
-        f"argmax agrees at {n_agree}/{n} positions (smallest top-2 gap {float(gap[span].min()):.3e}); "
-        f"{time.perf_counter() - t0:.2f} s"
+        f"{name} float32 ({'; '.join(notes)}), {t_len} positions: full forward vs prefill of {p} + "
+        f"{t_len - p} decode steps: max_abs_err={worst:.3e} (|logit| up to {float(full.abs().max()):.2f}), "
+        f"tol {ZOO_CHECK_TOL} abs + rel, argmax agrees at {n_agree}/{n} positions "
+        f"(smallest top-2 gap {float(gap[span].min()):.3e}); {time.perf_counter() - t0:.2f} s"
     )
     if worst_excess > ZOO_CHECK_TOL or n_agree != n:
         raise AssertionError(f"{name}: prefill + decode disagrees with the full forward")
     del params, full, caches
     torch.cuda.empty_cache()
+
+
+def phase_ssm_scans() -> dict:
+    """hymba-1.5b's SSM heads at full width on SCAN_LEN tokens, float32:
+    ``ssm_forward`` with the sequential scan (decode's) against the chunked
+    one (prefill's); then the two scans alone from a random state at mild
+    decays (softplus(dt) about 0.05, so that the state lasts the whole
+    run) and at strong ones (about 6, far past the reference's chunked
+    form's float32 limit), where the chunked one must stay finite.
+    Returns each scan's time (CUDA events)."""
+    cfg = ARCHS["hymba-1.5b"]
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    p = ssm.ssm_init(g, cfg.d_model, cfg.ssm_inner, cfg.ssm_state, torch.float32, DEVICE)
+    x = torch.randn((ZOO_BATCH, SCAN_LEN, cfg.d_model), generator=g, device=DEVICE)
+    worst = 0.0
+
+    def agree(label, seq, chunk):
+        nonlocal worst
+        for a, b, what in zip(seq, chunk, ("y", "final state")):
+            err = float((a - b).abs().max())
+            finite = bool(torch.isfinite(b).all())
+            ok = finite and torch.allclose(b, a, rtol=SCAN_TOL, atol=SCAN_TOL)
+            print(f"  {label}, {what}: max_abs_err={err:.3e} (|seq| up to {float(a.abs().max()):.2f}) "
+                  f"finite={finite} tol={SCAN_TOL} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"hymba's chunked scan disagrees with the sequential one ({label})")
+            worst = max(worst, err)
+
+    agree(f"ssm_forward (B, S, D)={tuple(x.shape)}", ssm.ssm_forward(x, p), ssm.ssm_forward(x, p, chunked=True))
+    u = torch.randn((ZOO_BATCH, SCAN_LEN, cfg.ssm_inner), generator=g, device=DEVICE)
+    bt, ct = (0.5 * torch.randn((ZOO_BATCH, SCAN_LEN, cfg.ssm_state), generator=g, device=DEVICE) for _ in range(2))
+    h0 = 0.5 * torch.randn((ZOO_BATCH, cfg.ssm_inner, cfg.ssm_state), generator=g, device=DEVICE)
+    a = torch.exp(p["A_log"])
+    for shift in (-3.0, 6.0):
+        dt = shift + 0.5 * torch.randn((ZOO_BATCH, SCAN_LEN, cfg.ssm_inner), generator=g, device=DEVICE)
+        per_chunk = (F.softplus(dt) * a).reshape(ZOO_BATCH, -1, 32, cfg.ssm_inner).sum(2)
+        args = (u, bt, ct, dt, a, h0)
+        agree(f"scans alone from a random state, a 32-token chunk summing {float(per_chunk.min()):.1f} to "
+              f"{float(per_chunk.max()):.1f} of -log a", ssm.selective_scan(*args), ssm.selective_scan_chunked(*args))
+    times = {
+        "sequential_ms": time_ms(lambda: ssm.selective_scan(*args), 3, warmup=1),
+        "chunked_ms": time_ms(lambda: ssm.selective_scan_chunked(*args), 10, warmup=2),
+    }
+    print(f"  times at (B, S, d_inner, N)=({ZOO_BATCH}, {SCAN_LEN}, {cfg.ssm_inner}, {cfg.ssm_state}), "
+          f"CUDA events: sequential {times['sequential_ms']:.3f} ms, chunked {times['chunked_ms']:.3f} ms")
+    return {"max_abs_err": worst, **times}
 
 
 def flash_bound(key, dtype) -> tuple[float, str]:
@@ -1317,9 +1467,12 @@ def main() -> int:
     phase("where the time goes", phase_breakdown, plan)
 
     calls = Counter()
-    launches = {"block_matmul": cnn_launches["block_matmul"]}
+    launches = Counter({"block_matmul": cnn_launches["block_matmul"]})
+    zoo_launches = {}
     for name in ZOO:
-        launches.update(phase(f"model-zoo path: {name}", phase_zoo_path, name, calls))
+        zoo_launches[name] = phase(f"model-zoo path: {name}", phase_zoo_path, name, calls)
+        launches.update(zoo_launches[name])
+    print(f"model-zoo launches per path: {zoo_launches}")
     print("model-zoo kernel calls per prefill: " + "; ".join(
         f"{k} {key} {str(dt)[6:]} x{n}" for (k, key, dt), n in calls.items()
     ))
@@ -1333,8 +1486,9 @@ def main() -> int:
         if name == "wkv6":
             phase("kernel vs plain: wkv6 at the path's shapes, strong decays", check_wkv6,
                   path_shapes, path_dtypes + (torch.float32,), "strong")
-    for name in ZOO:
+    for name in ZOO_CHECK:
         phase(f"model-zoo correctness: {name} float32", phase_zoo_check, name)
+    scans = phase("model-zoo correctness: hymba's sequential scan against the chunked one", phase_ssm_scans)
 
     # wkv6's route at each (type, head_dim) it ran at on the path and in the
     # float32 full-forward check.
@@ -1342,6 +1496,10 @@ def main() -> int:
         f"{str(dt)[6:]} hd {key[3]}": wkv_route(dt, key[3])
         for (k, key, dt) in calls if k == "wkv6"
     } | {f"float32 hd {ARCHS['rwkv6-7b'].resolved_head_dim}": wkv_route(torch.float32, ARCHS['rwkv6-7b'].resolved_head_dim)}
+    # flash_attention's route at each (type, head_dim) the zoo paths ran it at.
+    flash_routes = {
+        f"{str(dt)[6:]} hd {key[4]}": route(dt, key[4]) for (k, key, dt) in calls if k == "flash_attention"
+    }
     torch_ops = {"B1": phase("torch ops: lindley_ends on the card (B1)", phase_lindley)}
     torch_ops["backends"] = phase("torch ops: simulate(backend='torch') against the stepper", phase_backends)
     torch_ops.update(phase("torch ops: the replica engine (B2, B3)", phase_replicas))
@@ -1365,11 +1523,13 @@ def main() -> int:
             **({"shapes_checked": checks[name]["shapes_checked"]} if "shapes_checked" in checks[name] else {}),
             **({"sass_hgmma": matmul_hgmma, "routes": {"main path": path_routes, "kernel vs plain": checks[name]["routes"]}}
                if name == "block_matmul" else {}),
-            **({"sass_hgmma": hgmma} if name == "flash_attention" else {}),
+            **({"sass_hgmma": hgmma, "launches_by_path": {n: v["flash_attention"] for n, v in zoo_launches.items()
+                                                          if "flash_attention" in v},
+                "routes": flash_routes} if name == "flash_attention" else {}),
             **({"sass_hmma": hmma, "routes": wkv_routes} if name == "wkv6" else {}),
         })
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.2f} s")
-    print(json.dumps({"torch_ops": torch_ops}))
+    print(json.dumps({"torch_ops": torch_ops, "ssm_scans": scans}))
     print(json.dumps({"kernels": line}))
     print(json.dumps({
         "ok": True,

@@ -22,11 +22,15 @@
 // mirrors this dispatch; neither gives way to the other at run time):
 //
 //   bfloat16, hd in {64, 128, 256}  -> tensor-core kernel (tc::flash_kernel)
-//   bfloat16, hd in {16, 32}; every float32 shape -> CUDA-core kernel
-//                                                    (flash_kernel)
+//   bfloat16, hd in {16, 32, 96}; every float32 shape -> CUDA-core kernel
+//                                                        (flash_kernel)
 //
 // float32 stays off the tensor cores: there they would compute in TF32,
 // which breaks the float32 tolerances.  hd 16 and 32 occur in tests only.
+// hd 96 (phi-3-vision: 3072 / 32 heads) stays on the CUDA cores: the
+// tensor-core kernel works on 64-column, 128-byte-swizzle panels
+// (tc::PANEL), which 96 columns do not fill, and padding q, k and v to 128
+// in the wrapper would copy them at every call and hide the route.
 //
 // What bounds it.  On the serving path (gemma3-1b: B = 2, S = 2048, H = 4,
 // KV = 1, hd = 256, bfloat16) one global layer needs about 17 GFLOP of
@@ -348,6 +352,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
     case 16: return launch<T, 16>(q, k, v, o, b, s, h, kv, scale, window, stream);
     case 32: return launch<T, 32>(q, k, v, o, b, s, h, kv, scale, window, stream);
     case 64: return launch<T, 64>(q, k, v, o, b, s, h, kv, scale, window, stream);
+    case 96: return launch<T, 96>(q, k, v, o, b, s, h, kv, scale, window, stream);
     case 128: return launch<T, 128>(q, k, v, o, b, s, h, kv, scale, window, stream);
     case 256: return launch<T, 256>(q, k, v, o, b, s, h, kv, scale, window, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -698,12 +703,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int s, i
 
 // out (b, s, h, hd) = causal attention of q (b, s, h, hd) over k, v
 // (b, s, kv, hd), all contiguous, with kv dividing h; window > 0 keeps only
-// the last `window` keys of each query.  hd is 16, 32, 64, 128 or 256;
+// the last `window` keys of each query.  hd is 16, 32, 64, 96, 128 or 256;
 // is_bf16 picks bfloat16 (1) or float32 (0) for every tensor.  bfloat16 at
 // hd 64, 128 and 256 takes the tensor-core kernel and needs 16-byte-aligned
-// bases; everything else the CUDA-core kernel.  Launches on `stream` without
-// synchronising and returns the CUDA error of the launch (0 when it was
-// accepted).
+// bases; everything else (hd 96 included) the CUDA-core kernel.  Launches on
+// `stream` without synchronising and returns the CUDA error of the launch (0
+// when it was accepted).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int b, int s, int h, int kv, int hd,
                                float scale, int window, int is_bf16,
@@ -714,6 +719,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     case 16: return launch<__nv_bfloat16, 16>(q, k, v, o, b, s, h, kv, scale, window, st);
     case 32: return launch<__nv_bfloat16, 32>(q, k, v, o, b, s, h, kv, scale, window, st);
     case 64: return tc::launch<64>(q, k, v, o, b, s, h, kv, scale, window, st);
+    case 96: return launch<__nv_bfloat16, 96>(q, k, v, o, b, s, h, kv, scale, window, st);
     case 128: return tc::launch<128>(q, k, v, o, b, s, h, kv, scale, window, st);
     case 256: return tc::launch<256>(q, k, v, o, b, s, h, kv, scale, window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);

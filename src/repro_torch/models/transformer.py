@@ -1,11 +1,11 @@
 """Decoder model of the model zoo: parameters, full forward, prefill and
 decode.
 
-Port of the JAX package's ``models/transformer.py`` for the dense attention
-families (``block="transformer"`` without experts: qwen1.5-0.5b, gemma3-1b,
-minicpm-2b, nemotron-4-15b) and RWKV6 (``block="rwkv6"``).  Mixture of
-experts, hymba's SSM heads and the vision and audio frontends are not ported
-yet (ROADMAP A9): every entry point raises ``NotImplementedError`` for them.
+Port of the JAX package's ``models/transformer.py`` for every registered
+architecture: the dense attention families, mixture of experts
+(``models/moe.py``: grok-1-314b, llama4-maverick), hymba's parallel
+attention and SSM heads (``models/ssm.py``), RWKV6, and the vision and
+audio frontends (``models/frontend.py``: phi-3-vision, musicgen).
 
 The reference scans stacked layer groups for training; the port keeps one
 parameter dict per layer and runs every path as a plain loop over layers
@@ -17,8 +17,12 @@ constraints have no meaning on one card and are left out.
   the RWKV time mix through the ``wkv6`` kernel.
 * ``decode_step`` keeps per-layer caches: full-attention layers a KV cache
   of ``max_len`` slots, sliding-window layers a ring buffer of ``window``
-  slots, RWKV layers their O(1) recurrent state.  It updates the caches in
-  place and returns them.
+  slots, RWKV layers their O(1) recurrent state, hymba layers the SSM
+  state besides their KV cache.  It updates the KV caches in place and
+  returns them.
+* The vision frontend prepends the projected patch embeddings to the text
+  tokens, so prefill positions run over patches and text; the audio
+  frontend projects frame embeddings, in prefill and in decode.
 """
 from __future__ import annotations
 
@@ -28,7 +32,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     Params,
     mlp_forward,
@@ -41,26 +47,10 @@ from repro_torch.models.layers import (
 DEFAULT_DTYPE = torch.bfloat16
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.is_moe:
-        family = "mixture of experts"
-    elif cfg.block == "hymba":
-        family = "hymba (parallel SSM heads)"
-    elif cfg.frontend != "none":
-        family = f"the {cfg.frontend} frontend"
-    elif cfg.block not in ("transformer", "rwkv6"):
-        family = f"block {cfg.block!r}"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: {family} is not ported to repro_torch yet (ROADMAP A9)"
-    )
-
-
 # ==========================================================================
 # Parameters
 # ==========================================================================
-def _layer_init(cfg: ArchConfig, generator, dtype, device) -> Params:
+def _layer_init(cfg: ArchConfig, layer_idx: int, generator, dtype, device) -> Params:
     zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype, device=device)  # noqa: E731
     if cfg.block == "rwkv6":
         return {
@@ -70,15 +60,21 @@ def _layer_init(cfg: ArchConfig, generator, dtype, device) -> Params:
             ),
             "ln2": zeros(),
         }
-    return {
+    p: Params = {
         "ln1": zeros(),
         "ln2": zeros(),
         "attn": attn_mod.attn_init(
             generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.resolved_head_dim, cfg.qkv_bias, dtype, device,
         ),
-        "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp, dtype, device),
     }
+    if cfg.block == "hymba":
+        p["ssm"] = ssm_mod.ssm_init(generator, cfg.d_model, cfg.ssm_inner, cfg.ssm_state, dtype, device)
+    if cfg.layer_is_moe(layer_idx):
+        p["moe"] = moe_mod.moe_init(generator, cfg.d_model, cfg.d_ff, cfg.n_experts, dtype, device)
+    else:
+        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp, dtype, device)
+    return p
 
 
 def init_params(
@@ -91,16 +87,19 @@ def init_params(
     """Random parameters of the reference's shapes and scales, drawn from
     ``generator`` on its own device (a CUDA generator draws on the card) and
     stored as ``dtype`` on ``device``.  Norm weights are zero (the norms
-    scale by ``1 + weight``); RWKV's ``w0`` and ``u`` stay float32."""
-    _check_supported(cfg)
+    scale by ``1 + weight``); RWKV's ``w0`` and ``u``, the MoE router and
+    the SSM's ``A_log`` and ``D`` stay float32."""
     dev = resolve_device(device)
     scale = 1.0 / np.sqrt(cfg.d_model)
-    return {
+    params: Params = {
         "embed": normal((cfg.vocab_size, cfg.d_model), scale, generator, dtype, dev),
         "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
         "lm_head": normal((cfg.d_model, cfg.vocab_size), scale, generator, dtype, dev),
-        "layers": [_layer_init(cfg, generator, dtype, dev) for _ in range(cfg.n_layers)],
     }
+    if cfg.frontend != "none":
+        params["frontend_proj"] = normal((cfg.frontend_dim, cfg.d_model), scale, generator, dtype, dev)
+    params["layers"] = [_layer_init(cfg, i, generator, dtype, dev) for i in range(cfg.n_layers)]
+    return params
 
 
 def _tensor(a) -> torch.Tensor:
@@ -120,23 +119,20 @@ def params_from_jax(cfg: ArchConfig, params: dict) -> Params:
     position of a layer group along a leading ``n_groups`` axis
     (``params["groups"][j][name][g]`` is layer ``g * group_size + j``, as
     its ``_layer_params_at`` reads it); the port keeps one dict per layer."""
-    _check_supported(cfg)
 
     def layer(tree, g):
         if isinstance(tree, dict):
             return {name: layer(sub, g) for name, sub in tree.items()}
         return _tensor(np.asarray(tree)[g])
 
-    layers = []
+    out = {name: _tensor(params[name]) for name in ("embed", "final_norm", "lm_head")}
+    if cfg.frontend != "none":
+        out["frontend_proj"] = _tensor(params["frontend_proj"])
+    out["layers"] = []
     for i in range(cfg.n_layers):
         g, j = divmod(i, cfg.group_size)
-        layers.append(layer(params["groups"][j], g))
-    return {
-        "embed": _tensor(params["embed"]),
-        "final_norm": _tensor(params["final_norm"]),
-        "lm_head": _tensor(params["lm_head"]),
-        "layers": layers,
-    }
+        out["layers"].append(layer(params["groups"][j], g))
+    return out
 
 
 def layer_window_values(cfg: ArchConfig) -> list[int]:
@@ -159,10 +155,33 @@ def _zero_rwkv_state(cfg: ArchConfig, h: torch.Tensor):
     )
 
 
+def _attn_kw(cfg: ArchConfig) -> dict:
+    return dict(
+        n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim,
+        rope_theta=cfg.rope_theta,
+    )
+
+
+def _ffn(cfg: ArchConfig, p: Params, x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The layer's MoE or dense MLP on the normed x2; returns (y, the MoE's
+    load-balance loss or None)."""
+    if "moe" in p:
+        out = moe_mod.moe_ffn(
+            x2, p["moe"], k=cfg.experts_per_token,
+            capacity_factor=cfg.capacity_factor,
+            weight_gather=cfg.moe_weight_gather,
+        )
+        return out.y, out.aux_loss
+    return mlp_forward(x2, p["mlp"], cfg.mlp), None
+
+
 def _transformer_layer(
     cfg: ArchConfig, p: Params, h: torch.Tensor, window: int, positions: torch.Tensor
-) -> torch.Tensor:
-    """Pre-norm residual block over a whole sequence, from a zero state."""
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Pre-norm residual block over a whole sequence, from a zero state;
+    returns (h, the MoE's load-balance loss or None)."""
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     if cfg.block == "rwkv6":
         y, _ = rwkv_mod.time_mix(
@@ -171,39 +190,63 @@ def _transformer_layer(
         h = h + y
         x2 = rms_norm(h, p["ln2"], cfg.norm_eps)
         y2, _ = rwkv_mod.channel_mix(x2, p["rwkv"], torch.zeros_like(h[:, 0]))
-        return h + y2
-    y = attn_mod.attn_forward(
-        x,
-        p["attn"],
-        n_heads=cfg.n_heads,
-        n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim,
-        rope_theta=cfg.rope_theta,
-        window=window,
-        positions=positions,
-    )
+        return h + y2, None
+    y = attn_mod.attn_forward(x, p["attn"], window=window, positions=positions, **_attn_kw(cfg))
+    if cfg.block == "hymba":
+        # Attention and SSM heads run in parallel on the same normed input;
+        # their outputs are averaged (arXiv:2411.13676 Sec. 2).
+        y_ssm, _ = ssm_mod.ssm_forward(x, p["ssm"], chunked=cfg.use_chunked_scan)
+        y = 0.5 * (y + y_ssm)
     h = h + y
-    x2 = rms_norm(h, p["ln2"], cfg.norm_eps)
-    return h + mlp_forward(x2, p["mlp"], cfg.mlp)
+    y2, aux = _ffn(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
+    return h + y2, aux
 
 
 def backbone(
     cfg: ArchConfig, params: Params, h: torch.Tensor, positions: torch.Tensor | None = None
-) -> torch.Tensor:
-    """Run every layer over h (B, S, D); returns the hidden states."""
-    _check_supported(cfg)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run every layer over h (B, S, D); returns (hidden states, the MoE
+    layers' summed load-balance loss, a float32 scalar)."""
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for p, window in zip(params["layers"], layer_window_values(cfg)):
-        h = _transformer_layer(cfg, p, h, window, positions)
-    return h
+        h, a = _transformer_layer(cfg, p, h, window, positions)
+        if a is not None:
+            aux = aux + a
+    return h, aux
 
 
-def embed_inputs(cfg: ArchConfig, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
-    """Token embeddings (B, S, D) of ``batch["tokens"]`` (B, S).  Text only:
-    the reference's frontends are not ported (ROADMAP A9)."""
-    _check_supported(cfg)
-    return params["embed"][batch["tokens"]]
+def _project(embeds: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
+    """Frontend embeddings through ``frontend_proj``, in the projector's
+    dtype (the reference's bf16 @ f32 promotes to f32 the same way)."""
+    return embeds.to(proj.dtype) @ proj
+
+
+def embed_inputs(
+    cfg: ArchConfig, params: Params, batch: dict[str, torch.Tensor]
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Returns (h (B, S, D), loss mask or None).
+
+    * text archs: ``batch["tokens"]`` (B, S).
+    * vision: the projected ``batch["patch_embeds"]`` (B, P, frontend_dim)
+      are prepended to the token embeddings; the mask is 0 on the patches
+      and 1 on the text.
+    * audio: ``batch["frame_embeds"]`` (B, S, frontend_dim) projected to
+      d_model.
+    """
+    if cfg.frontend == "vision":
+        tok = params["embed"][batch["tokens"]]
+        patches = _project(batch["patch_embeds"], params["frontend_proj"]).to(tok.dtype)
+        b, n_p, s_text = patches.shape[0], patches.shape[1], tok.shape[1]
+        mask = torch.cat([
+            torch.zeros((b, n_p), dtype=torch.float32, device=tok.device),
+            torch.ones((b, s_text), dtype=torch.float32, device=tok.device),
+        ], dim=1)
+        return torch.cat([patches, tok], dim=1), mask
+    if cfg.frontend == "audio":
+        return _project(batch["frame_embeds"], params["frontend_proj"]), None
+    return params["embed"][batch["tokens"]], None
 
 
 def unembed(cfg: ArchConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
@@ -222,7 +265,6 @@ def init_decode_caches(
     device: "str | torch.device" = "cuda",
 ) -> list[dict[str, torch.Tensor]]:
     """Empty per-layer caches sized by each layer's kind."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     caches = []
     hd = cfg.resolved_head_dim
@@ -232,10 +274,14 @@ def init_decode_caches(
             continue
         size = max_len if cfg.layer_is_global(i) else min(cfg.window, max_len)
         shape = (batch, size, cfg.n_kv_heads, hd)
-        caches.append({
+        cache = {
             "k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev),
-        })
+        }
+        if cfg.block == "hymba":
+            cache["ssm"] = ssm_mod.ssm_state_init(batch, cfg.ssm_inner, cfg.ssm_state, dev)
+            cache["ssm_prev"] = torch.zeros((batch, cfg.d_model), dtype=dtype, device=dev)
+        caches.append(cache)
     return caches
 
 
@@ -243,13 +289,15 @@ def decode_step(
     cfg: ArchConfig,
     params: Params,
     caches: list[dict[str, torch.Tensor]],
-    tokens: torch.Tensor,     # (B, 1) integer
-    cur_len: int,             # tokens already cached
+    tokens: torch.Tensor,     # (B, 1) integer, or (B, 1, frontend_dim) for audio
+    cur_len: int,             # positions already cached
 ) -> tuple[torch.Tensor, list[dict[str, torch.Tensor]]]:
-    """One-token serve step: returns (logits (B, 1, V), caches), the caches
-    updated in place."""
-    _check_supported(cfg)
-    h = params["embed"][tokens]
+    """One-token serve step: returns (logits (B, 1, V), caches), the KV
+    caches updated in place."""
+    if cfg.frontend == "audio":
+        h = _project(tokens, params["frontend_proj"])
+    else:
+        h = params["embed"][tokens]
     new_caches = []
     for i, (p, cache) in enumerate(zip(params["layers"], caches)):
         x = rms_norm(h, p["ln1"], cfg.norm_eps)
@@ -265,24 +313,23 @@ def decode_step(
             new_caches.append({"tm_shift": tm_shift, "wkv": wkv, "cm_shift": cm_shift})
             continue
 
-        kw = dict(
-            n_heads=cfg.n_heads,
-            n_kv_heads=cfg.n_kv_heads,
-            head_dim=cfg.resolved_head_dim,
-            rope_theta=cfg.rope_theta,
-        )
         if cfg.layer_is_global(i):
             y, k_c, v_c = attn_mod.attn_decode_step(
-                x, p["attn"], cache["k"], cache["v"], cur_len, window=0, **kw
+                x, p["attn"], cache["k"], cache["v"], cur_len, window=0, **_attn_kw(cfg)
             )
         else:
             y, k_c, v_c = attn_mod.attn_decode_step_ring(
-                x, p["attn"], cache["k"], cache["v"], cur_len, **kw
+                x, p["attn"], cache["k"], cache["v"], cur_len, **_attn_kw(cfg)
             )
+        new_cache = {"k": k_c, "v": v_c}
+        if cfg.block == "hymba":
+            y_ssm, new_cache["ssm"] = ssm_mod.ssm_forward(x, p["ssm"], cache["ssm"])
+            new_cache["ssm_prev"] = cache["ssm_prev"]
+            y = 0.5 * (y + y_ssm)
         h = h + y
-        x2 = rms_norm(h, p["ln2"], cfg.norm_eps)
-        h = h + mlp_forward(x2, p["mlp"], cfg.mlp)
-        new_caches.append({"k": k_c, "v": v_c})
+        y2, _ = _ffn(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
+        h = h + y2
+        new_caches.append(new_cache)
     return unembed(cfg, params, h), new_caches
 
 
@@ -292,18 +339,20 @@ def prefill_step(
     batch: dict[str, torch.Tensor],
     max_len: int,
 ) -> tuple[torch.Tensor, list[dict[str, torch.Tensor]]]:
-    """Process a whole prompt ``batch["tokens"]`` (B, S); returns (logits of
-    the last token (B, 1, V), decode caches).
+    """Process a whole prompt (``batch`` as ``embed_inputs`` takes it, S
+    positions in all); returns (logits of the last position (B, 1, V),
+    decode caches).
 
     Full-attention layers cache the prompt in the first S of ``max_len``
     slots; sliding-window layers seed their ring buffer of W slots with the
-    last W tokens so that slot ``t % W`` holds token t, as decode expects;
-    RWKV layers keep the recurrent state after the prompt.
+    last W positions so that slot ``t % W`` holds position t, as decode
+    expects; RWKV layers keep the recurrent state after the prompt, hymba
+    layers the SSM state and the last normed input (``ssm_prev``).
     """
-    h = embed_inputs(cfg, params, batch)
+    h, _ = embed_inputs(cfg, params, batch)
     b, s, _ = h.shape
     if s > max_len:
-        raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+        raise ValueError(f"prompt of {s} positions exceeds max_len {max_len}")
     positions = torch.arange(s, device=h.device)
     hd = cfg.resolved_head_dim
     caches = []
@@ -322,15 +371,8 @@ def prefill_step(
 
         is_global = cfg.layer_is_global(i)
         y, k_kv, v_kv = attn_mod.attn_forward(
-            x,
-            p["attn"],
-            n_heads=cfg.n_heads,
-            n_kv_heads=cfg.n_kv_heads,
-            head_dim=hd,
-            rope_theta=cfg.rope_theta,
-            window=0 if is_global else cfg.window,
-            positions=positions,
-            return_kv=True,
+            x, p["attn"], window=0 if is_global else cfg.window, positions=positions,
+            return_kv=True, **_attn_kw(cfg),
         )
         size = max_len if is_global else min(cfg.window, max_len)
         k_c = torch.zeros((b, size, cfg.n_kv_heads, hd), dtype=h.dtype, device=h.device)
@@ -342,10 +384,15 @@ def prefill_step(
             slots = torch.arange(s - size, s, device=h.device) % size
             k_c[:, slots] = k_kv[:, s - size:]
             v_c[:, slots] = v_kv[:, s - size:]
+        cache = {"k": k_c, "v": v_c}
+        if cfg.block == "hymba":
+            y_ssm, cache["ssm"] = ssm_mod.ssm_forward(x, p["ssm"], chunked=cfg.use_chunked_scan)
+            cache["ssm_prev"] = x[:, -1, :]
+            y = 0.5 * (y + y_ssm)
         h = h + y
-        x2 = rms_norm(h, p["ln2"], cfg.norm_eps)
-        h = h + mlp_forward(x2, p["mlp"], cfg.mlp)
-        caches.append({"k": k_c, "v": v_c})
+        y2, _ = _ffn(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
+        h = h + y2
+        caches.append(cache)
     return unembed(cfg, params, h[:, -1:, :]), caches
 
 
@@ -353,11 +400,13 @@ def prefill_step(
 # Parameter accounting
 # ==========================================================================
 def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
-    """Parameters of the model (every one is active in the ported families)."""
-    _check_supported(cfg)
+    """Parameters of the model; ``active_only`` counts the router and the
+    ``experts_per_token`` experts a token runs through on MoE layers."""
     total = cfg.vocab_size * cfg.d_model * 2           # embed + lm_head
     total += cfg.d_model                               # final norm
-    for _ in range(cfg.n_layers):
+    if cfg.frontend != "none":
+        total += cfg.frontend_dim * cfg.d_model
+    for i in range(cfg.n_layers):
         total += 2 * cfg.d_model                       # ln1, ln2
         if cfg.block == "rwkv6":
             total += rwkv_mod.rwkv_param_count(cfg.d_model, cfg.d_ff, cfg.decay_rank)
@@ -365,5 +414,14 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
         total += attn_mod.attn_param_count(
             cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.qkv_bias
         )
-        total += mlp_param_count(cfg.d_model, cfg.d_ff, cfg.mlp)
+        if cfg.block == "hymba":
+            total += ssm_mod.ssm_param_count(cfg.d_model, cfg.ssm_inner, cfg.ssm_state)
+        if cfg.layer_is_moe(i):
+            if active_only:
+                total += cfg.d_model * cfg.n_experts
+                total += cfg.experts_per_token * 3 * cfg.d_model * cfg.d_ff
+            else:
+                total += moe_mod.moe_param_count(cfg.d_model, cfg.d_ff, cfg.n_experts)
+        else:
+            total += mlp_param_count(cfg.d_model, cfg.d_ff, cfg.mlp)
     return total

@@ -73,6 +73,8 @@ def test_causal_and_window_match_the_pallas_kernel_and_its_oracle(window, dtype)
         (1, 37, 4, 2, 32, 0),     # ragged S, global
         (2, 37, 2, 1, 64, 5),     # ragged S, windowed
         (1, 1, 2, 2, 16, 0),      # one token
+        (2, 48, 4, 4, 96, 0),     # phi-3-vision's head_dim, global
+        (1, 37, 4, 2, 96, 16),    # head_dim 96, GQA, ragged S, windowed
     ],
 )
 def test_gqa_head_dims_and_ragged_lengths(b, s, h, kv, hd, window):
@@ -111,8 +113,22 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(q, k, v, error):
 @pytest.mark.parametrize("head_dim", fa_mod.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_route_puts_bf16_at_64_128_256_on_the_tensor_cores(dtype, head_dim):
-    want = "tensor-core" if dtype == torch.bfloat16 and head_dim >= 64 else "cuda-core"
+    want = "tensor-core" if dtype == torch.bfloat16 and head_dim in (64, 128, 256) else "cuda-core"
     assert fa_mod.route(dtype, head_dim) == want
+
+
+def test_head_dims_mirror_the_c_dispatch():
+    """``HEAD_DIMS`` are the cases of both of ``flash_attention.cu``'s
+    switches: the float32 ``dispatch`` and the bfloat16 one, where 96 goes
+    to the CUDA-core ``launch``."""
+    src = (fa_mod.build.CSRC_DIR / "flash_attention.cu").read_text()
+    dispatch = src[src.index("int dispatch("):]
+    dispatch = dispatch[: dispatch.index("default:")]
+    entry = src[src.index('extern "C" int flash_attention('):]
+    bf16_switch = entry[entry.index("switch (hd)"):]
+    assert tuple(int(d) for d in re.findall(r"case (\d+): return launch<T, \1>", dispatch)) == fa_mod.HEAD_DIMS
+    assert tuple(int(d) for d in re.findall(r"case (\d+):", bf16_switch)) == fa_mod.HEAD_DIMS
+    assert "case 96: return launch<__nv_bfloat16, 96>" in bf16_switch
 
 
 def test_route_mirrors_the_c_dispatch():
@@ -179,4 +195,24 @@ def test_cuda_kernel_matches_plain_version(dtype):
         torch.cuda.synchronize()
         assert causal_attention.launches == before + 1
         want = causal_attention_plain(tq, tk, tv, scale=hd**-0.5, window=window)
+        torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_matches_plain_version_at_head_dim_96(dtype):
+    """phi-3-vision's head_dim on the CUDA-core route: its path shape's
+    heads, global and windowed, at one token, a ragged tile and a length
+    past several tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    assert fa_mod.route(getattr(torch, dtype), 96) == "cuda-core"
+    for b, s, h, kv, window in [(1, 1, 32, 32, 0), (2, 33, 4, 2, 0), (1, 700, 32, 32, 0), (2, 300, 8, 8, 64)]:
+        _, (tq, tk, tv) = _inputs(b, s, h, kv, 96, dtype, seed=s)
+        tq, tk, tv = tq.cuda(), tk.cuda(), tv.cuda()
+        before = causal_attention.launches
+        got = causal_attention(tq, tk, tv, scale=96**-0.5, window=window)
+        torch.cuda.synchronize()
+        assert causal_attention.launches == before + 1
+        want = causal_attention_plain(tq, tk, tv, scale=96**-0.5, window=window)
         torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])

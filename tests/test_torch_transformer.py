@@ -32,15 +32,54 @@ from repro_torch.models.transformer import (
     unembed,
 )
 
-PARITY_ARCHS = ["qwen1.5-0.5b", "gemma3-1b", "minicpm-2b", "nemotron-4-15b", "rwkv6-7b"]
-SUPPORTED = ["qwen1.5-0.5b", "gemma3-1b", "minicpm-2b", "nemotron-4-15b", "rwkv6-7b"]
-UNSUPPORTED = ["grok-1-314b", "llama4-maverick-400b-a17b", "hymba-1.5b", "phi-3-vision-4.2b", "musicgen-large"]
-PROMPT, DECODE, MAX_LEN = 24, 8, 40   # the prompt is longer than the reduced window (16)
+PARITY_ARCHS = [
+    "qwen1.5-0.5b", "gemma3-1b", "minicpm-2b", "nemotron-4-15b", "rwkv6-7b",
+    "grok-1-314b", "llama4-maverick-400b-a17b", "hymba-1.5b", "phi-3-vision-4.2b", "musicgen-large",
+]
+# Positions of the prompt (patches included) and decode steps; the prompt
+# is longer than the reduced window (16).
+PROMPT, DECODE, MAX_LEN = 24, 8, 40
 TOL = 1e-4
 
 
 def _close(got, want, tol=TOL, msg=""):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=tol, atol=tol, err_msg=msg)
+
+
+def _stream(cfg, b, n_pos, seed):
+    """Seeded numpy inputs of ``n_pos`` positions: (the vision frontend's
+    patch embeddings or None, the per-position inputs after them: token
+    ids (b, n) or, for the audio frontend, frame embeddings (b, n, dim)).
+    Embeddings are rounded to bfloat16, the frontends' embedding type, the
+    same way on both sides."""
+    rng = np.random.default_rng(seed)
+    patches = None
+    if cfg.frontend == "vision":
+        patches = rng.standard_normal((b, cfg.n_patches, cfg.frontend_dim), dtype=np.float32)
+        n_pos -= cfg.n_patches
+    if cfg.frontend == "audio":
+        return patches, rng.standard_normal((b, n_pos, cfg.frontend_dim), dtype=np.float32)
+    return patches, rng.integers(0, cfg.vocab_size, (b, n_pos), dtype=np.int32)
+
+
+def _batch(cfg, patches, seq, lib):
+    """The prefill batch of ``seq`` (and the patches) for the reference
+    (``lib="jax"``) or the port (``"torch"``)."""
+    def embeds(a):
+        return jnp.asarray(a).astype(jnp.bfloat16) if lib == "jax" else torch.from_numpy(a).bfloat16()
+
+    if cfg.frontend == "audio":
+        return {"frame_embeds": embeds(seq)}
+    batch = {"tokens": jnp.asarray(seq) if lib == "jax" else torch.from_numpy(seq).long()}
+    if patches is not None:
+        batch["patch_embeds"] = embeds(patches)
+    return batch
+
+
+def _step(cfg, seq, t, lib):
+    """The decode input of position ``t`` of ``seq``."""
+    batch = _batch(cfg, None, seq[:, t : t + 1], lib)
+    return batch["frame_embeds" if cfg.frontend == "audio" else "tokens"]
 
 
 # --------------------------------------------------------------------------
@@ -56,11 +95,14 @@ def test_registry_equals_the_reference():
     }
 
 
-@pytest.mark.parametrize("name", SUPPORTED)
+@pytest.mark.parametrize("name", ARCHS)
 def test_parameter_count_and_windows_equal_the_reference(name):
     cfg, ref_cfg = ARCHS[name], REF_ARCHS[name]
     assert count_params(cfg) == ref_tf.count_params(ref_cfg)
     assert cfg.param_count() == ref_cfg.param_count()
+    assert count_params(cfg, active_only=True) == ref_tf.count_params(ref_cfg, active_only=True)
+    assert cfg.active_param_count() == ref_cfg.active_param_count()
+    assert (cfg.active_param_count() < cfg.param_count()) == cfg.is_moe
     assert layer_window_values(cfg) == ref_tf.layer_window_values(ref_cfg).reshape(-1).tolist()
 
 
@@ -119,7 +161,7 @@ def test_attention_plain_with_causal_window_mask(window):
 # --------------------------------------------------------------------------
 @pytest.fixture(scope="module")
 def runs():
-    """Per arch: the reference's and the port's prefill of a PROMPT-token
+    """Per arch: the reference's and the port's prefill of a PROMPT-position
     batch of 2, then DECODE teacher-forced decode steps, from the
     reference's float32 parameters.  The reference's steps are jitted, as
     ``launch/steps.py`` serves them."""
@@ -130,12 +172,12 @@ def runs():
         ref_cfg, cfg = REF_ARCHS[name].reduced(), ARCHS[name].reduced()
         ref_params = ref_tf.init_params(ref_cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
         params = params_from_jax(cfg, ref_params)
-        tokens = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, PROMPT + DECODE), dtype=np.int32)
-        ttok = torch.from_numpy(tokens).long()
+        patches, seq = _stream(cfg, 2, PROMPT + DECODE, seed=7)
+        first = PROMPT - (cfg.n_patches if patches is not None else 0)   # inputs of seq in the prompt
         ref_logits, ref_caches = ref_prefill(
-            ref_cfg, ref_params, {"tokens": jnp.asarray(tokens[:, :PROMPT])}, MAX_LEN
+            ref_cfg, ref_params, _batch(cfg, patches, seq[:, :first], "jax"), MAX_LEN
         )
-        logits, caches = prefill_step(cfg, params, {"tokens": ttok[:, :PROMPT]}, MAX_LEN)
+        logits, caches = prefill_step(cfg, params, _batch(cfg, patches, seq[:, :first], "torch"), MAX_LEN)
         run = {
             "prefill": (np.asarray(ref_logits), logits.numpy()),
             "caches": (
@@ -144,11 +186,12 @@ def runs():
             ),
             "decode": [],
         }
-        for t in range(PROMPT, PROMPT + DECODE):
+        for j in range(DECODE):
+            t = PROMPT + j
             ref_logits, ref_caches = ref_decode(
-                ref_cfg, ref_params, ref_caches, jnp.asarray(tokens[:, t : t + 1]), jnp.int32(t)
+                ref_cfg, ref_params, ref_caches, _step(cfg, seq, first + j, "jax"), jnp.int32(t)
             )
-            logits, caches = decode_step(cfg, params, caches, ttok[:, t : t + 1], t)
+            logits, caches = decode_step(cfg, params, caches, _step(cfg, seq, first + j, "torch"), t)
             run["decode"].append((np.asarray(ref_logits), logits.numpy()))
         out[name] = run
     return out
@@ -175,23 +218,57 @@ def test_decode_logits_match_the_reference(runs, name):
 
 
 @pytest.mark.parametrize("name", PARITY_ARCHS)
+def test_full_forward_matches_the_reference(name):
+    """embed_inputs (with the vision frontend's loss mask), backbone (with
+    the MoE layers' load-balance loss) and unembed, from the reference's
+    float32 parameters."""
+    ref_cfg, cfg = REF_ARCHS[name].reduced(), ARCHS[name].reduced()
+    ref_params = ref_tf.init_params(ref_cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    params = params_from_jax(cfg, ref_params)
+    patches, seq = _stream(cfg, 2, PROMPT, seed=11)
+    ref_h, ref_mask = ref_tf.embed_inputs(ref_cfg, ref_params, _batch(cfg, patches, seq, "jax"))
+    h, mask = embed_inputs(cfg, params, _batch(cfg, patches, seq, "torch"))
+    assert (mask is None) == (ref_mask is None) == (cfg.frontend != "vision")
+    if mask is not None:
+        assert np.array_equal(mask.numpy(), np.asarray(ref_mask))
+    _close(h, ref_h, msg=f"{name}: embeddings")
+    ref_h, ref_aux = ref_tf.backbone(ref_cfg, ref_params, ref_h, remat=False)
+    h, aux = backbone(cfg, params, h)
+    _close(aux, ref_aux, msg=f"{name}: MoE load-balance loss")
+    assert (float(aux) > 0) == cfg.is_moe
+    _close(unembed(cfg, params, h), ref_tf.unembed(ref_cfg, ref_params, ref_h), msg=f"{name}: logits")
+
+
+@pytest.mark.parametrize("name", PARITY_ARCHS)
 def test_prefill_then_decode_equals_the_full_forward(name):
     """The port's own invariant (as ``tests/test_prefill_decode.py``), from
-    its own parameters: prefilling 8 tokens, then decoding, gives the logits
-    of one full forward; gemma3's prompt of 20 overruns its window of 16."""
+    its own parameters: prefilling 8 positions (after the patches, for the
+    vision frontend), then decoding, gives the logits of one full forward;
+    with a window, a prompt of 20 overruns the reduced window of 16.  MoE
+    layers take capacity factor 8.0, as the reference's test does: prefill
+    groups could otherwise drop tokens that one-token decode never drops."""
     cfg = ARCHS[name].reduced()
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
-    prompt = 20 if name == "gemma3-1b" else 8
-    tokens = torch.randint(0, cfg.vocab_size, (1, prompt + 4), generator=torch.Generator().manual_seed(1))
-    full = unembed(cfg, params, backbone(cfg, params, embed_inputs(cfg, params, {"tokens": tokens})))
-    logits, caches = prefill_step(cfg, params, {"tokens": tokens[:, :prompt]}, max_len=32)
+    n_patches = cfg.n_patches if cfg.frontend == "vision" else 0
+    prompt = (20 if cfg.window else 8) + n_patches
+    patches, seq = _stream(cfg, 1, prompt + 4, seed=1)
+    h, _ = embed_inputs(cfg, params, _batch(cfg, patches, seq, "torch"))
+    full = unembed(cfg, params, backbone(cfg, params, h)[0])
+    first = prompt - n_patches
+    logits, caches = prefill_step(cfg, params, _batch(cfg, patches, seq[:, :first], "torch"), max_len=32)
     torch.testing.assert_close(logits[:, 0], full[:, prompt - 1], rtol=2e-3, atol=2e-3)
-    for t in range(prompt, tokens.shape[1]):
-        logits, caches = decode_step(cfg, params, caches, tokens[:, t : t + 1], t)
-        torch.testing.assert_close(logits[:, 0], full[:, t], rtol=5e-3, atol=5e-3)
+    for j in range(4):
+        logits, caches = decode_step(cfg, params, caches, _step(cfg, seq, first + j, "torch"), prompt + j)
+        torch.testing.assert_close(logits[:, 0], full[:, prompt + j], rtol=5e-3, atol=5e-3)
 
 
-@pytest.mark.parametrize("name", ["gemma3-1b", "rwkv6-7b"])
+@pytest.mark.parametrize(
+    "name",
+    ["gemma3-1b", "rwkv6-7b", "grok-1-314b", "llama4-maverick-400b-a17b", "hymba-1.5b",
+     "phi-3-vision-4.2b", "musicgen-large"],
+)
 def test_init_params_has_the_reference_structure(name):
     cfg = ARCHS[name].reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -203,19 +280,6 @@ def test_init_params_has_the_reference_structure(name):
     assert sum(t.numel() for t in torch.utils._pytree.tree_leaves(params)) == count_params(cfg)
     caches = init_decode_caches(cfg, 2, MAX_LEN, device="cpu")
     assert len(caches) == cfg.n_layers
-
-
-@pytest.mark.parametrize("name", UNSUPPORTED)
-def test_unported_families_raise(name):
-    cfg = ARCHS[name].reduced()
-    with pytest.raises(NotImplementedError, match="A9"):
-        init_params(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        count_params(cfg)
-    with pytest.raises(NotImplementedError, match="A9"):
-        prefill_step(cfg, {}, {"tokens": torch.zeros((1, 2), dtype=torch.long)}, 4)
-    with pytest.raises(NotImplementedError, match="A9"):
-        decode_step(cfg, {}, [], torch.zeros((1, 1), dtype=torch.long), 0)
 
 
 def test_entry_points_default_to_the_gpu():

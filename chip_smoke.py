@@ -12,7 +12,8 @@ and prints no result line):
    each kernel's registers and spills; then the count of tensor-core
    instructions in the SASS of the block_matmul and flash_attention
    libraries (``HGMMA``) and of the wkv6 library (``HMMA``), none of which
-   may be 0;
+   may be 0; each tensor-core flash_attention instantiation must have
+   exactly its count (``FLASH_TC_HGMMA``);
 3. kernel vs plain: each kernel's wrapper on the card at the reference's
    test shapes and ragged ones (``block_matmul`` also at the serving path's
    shapes and, in bfloat16, at ragged tensor-core tiles and 4096^3), held
@@ -36,7 +37,7 @@ and prints no result line):
    kernel's launches counted, the shapes it was called at recorded, device
    time by kernel and the MoE and chunked-scan ranges' share; then each
    kernel against its plain version at those shapes (flash_attention with
-   its route per shape, hd 96 on the CUDA cores; wkv6 at mild and strong
+   its route per shape, bf16 hd 96 on the tensor cores; wkv6 at mild and strong
    decays);
 7. model-zoo correctness: float32, full width, full depth for gemma3-1b and
    rwkv6-7b and reduced depth for the others: the full forward (kernels on
@@ -108,7 +109,12 @@ from repro_torch.core.planner import FCFS, DisciplineSpec, Plan, TenantSpec, val
 from repro_torch.core.torch_eval import TorchPlanEvaluator  # noqa: E402
 from repro_torch.hw.specs import EDGE_TPU_PLATFORM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.flash_attention import causal_attention, causal_attention_plain, route  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    TENSOR_CORE_HEAD_DIMS,
+    causal_attention,
+    causal_attention_plain,
+    route,
+)
 from repro_torch.kernels.matmul import matmul, matmul_plain  # noqa: E402
 from repro_torch.kernels.matmul import route as matmul_route  # noqa: E402
 from repro_torch.kernels.wkv6 import route as wkv_route  # noqa: E402
@@ -231,10 +237,12 @@ def find_cuobjdump() -> str | None:
     return None
 
 
-def phase_tensor_cores(name: str, opcode: str) -> int:
+def phase_tensor_cores(name: str, opcode: str, expected: dict[str, int] | None = None) -> int:
     """Count the tensor-core instructions (``opcode``: HGMMA for Hopper's
     wgmma, HMMA for mma.sync) in each kernel of library ``name``'s SASS;
-    fails when there are none or when no ``cuobjdump`` is found."""
+    fails when there are none, when the kernels whose mangled names match a
+    pattern of ``expected`` are not exactly one with that pattern's count,
+    or when no ``cuobjdump`` is found."""
     tool = find_cuobjdump()
     if tool is None:
         raise RuntimeError("cuobjdump is not available: the tensor-core route cannot be shown")
@@ -254,6 +262,10 @@ def phase_tensor_cores(name: str, opcode: str) -> int:
     total = sum(counts.values())
     if total == 0:
         raise AssertionError(f"no {opcode} instruction in the {name} library: the tensor-core route is missing")
+    for pattern, want in (expected or {}).items():
+        found = [n for fn_name, n in counts.items() if re.search(pattern, fn_name)]
+        if found != [want]:
+            raise AssertionError(f"{name} kernels matching {pattern!r} have {found} {opcode}, expected [{want}]")
     return total
 
 
@@ -530,18 +542,31 @@ ZOO_CHECK_PREFILL = 16   # text tokens or frames; the vision frontend's patches 
 ZOO_CHECK_TOL = 2e-3   # tests/test_prefill_decode.py's prefill tolerance
 SCAN_LEN, SCAN_TOL = 256, 1e-3   # hymba's sequential scan against the chunked one
 FLASH_TOL = {torch.float32: 5e-4, torch.bfloat16: 3e-2}   # TestFlashAttention
+# FLASH_TOL is absolute and late rows of a long causal row are small (about
+# 0.04 at S = 2048), so each output row (one query of one head) is also held
+# to its error's norm over the plain row's norm: the limits lie between the
+# sound kernels' largest reading and that of a planted one-tile fault
+# (tile_fault_err), which every long shape checks (PERF.md, PR 19).
+FLASH_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# HGMMA per tensor-core flash_attention instantiation: hd / 16 steps of
+# q k^T, and kv_tile / 16 steps of P v times the hd / 64 (hd 96: 3) panels.
+FLASH_TC_HGMMA = {64: 4 + 4, 96: 6 + 4 * 3, 128: 8 + 4 * 2, 256: 16 + 2 * 4}
 WKV_TOL = 2e-3                                             # TestWKV6
 # (B, S, H, KV, hd, window): TestFlashAttention's shapes, a property-sweep
-# sample, the first-token case, gemma3's GQA at hd 256, and ragged lengths.
+# sample, the first-token case, gemma3's GQA at hd 256, phi-3-vision's path
+# shape at hd 96, and ragged lengths (hd 96: one token, 37 and 2047
+# positions, GQA 4, windows of 17 and 512).
 FLASH_TEST_SHAPES = [
     (2, 128, 4, 2, 32, 0), (2, 128, 4, 2, 32, 64), (2, 128, 4, 2, 32, 17),
     (1, 256, 4, 2, 64, 100), (1, 32, 1, 1, 16, 16), (1, 64, 2, 2, 16, 0),
-    (1, 64, 4, 1, 256, 16),
+    (1, 64, 4, 1, 256, 16), (2, 2048, 32, 32, 96, 0),
 ]
 FLASH_RAGGED_SHAPES = [
     (1, 1, 2, 2, 16, 0), (1, 37, 4, 2, 32, 0), (2, 37, 2, 1, 64, 5),
     (1, 100, 2, 1, 128, 0), (2, 600, 4, 1, 256, 512), (1, 1000, 16, 16, 64, 0),
     (1, 33, 4, 1, 256, 0), (2, 2047, 4, 1, 256, 512),
+    (1, 1, 4, 1, 96, 0), (2, 37, 8, 2, 96, 0), (1, 37, 4, 4, 96, 17),
+    (1, 300, 4, 1, 96, 17), (2, 2047, 8, 2, 96, 512),
 ]
 # (B, T, H, hd): TestWKV6's shapes and property-sweep sample, and ragged ones.
 WKV_TEST_SHAPES = [(1, 64, 2, 16), (2, 32, 2, 8), (1, 16, 1, 8), (1, 128, 4, 32)]
@@ -579,8 +604,33 @@ def wkv_operands(shape, dtype, seed, with_state, decays="mild"):
     return r, k, v, w, u, state
 
 
+def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest error of one output row (a query of one head), its norm
+    over the norm of that row of ``want``."""
+    diff = (got.float() - want.float()).norm(dim=-1)
+    return float((diff / want.float().norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def tile_fault_err(q, k, v, scale, window, want) -> float | None:
+    """row_rel_err of a planted fault: the last 64 queries' P v skips the
+    64-key tile before theirs (l still counts it), what a kernel that drops
+    one KV tile for late rows would give.  None where the shape is too short
+    or its window too narrow for that tile to count for every late row."""
+    s_len = q.shape[1]
+    if s_len < 512 or 0 < window < 128:
+        return None
+    last = (s_len - 1) // 64 * 64
+    v_cut = v.clone()
+    v_cut[:, last - 64:last] = 0
+    fault = want.clone()
+    fault[:, last:] = causal_attention_plain(q, k, v_cut, scale=scale, window=window)[:, last:]
+    return row_rel_err(fault, want)
+
+
 def check_flash(shapes, dtypes) -> float:
-    """Kernel vs plain version; returns the largest absolute error."""
+    """Kernel vs plain version, elementwise (FLASH_TOL) and per row
+    (FLASH_ROW_TOL, which must also catch a planted one-tile fault on long
+    shapes); returns the largest absolute error."""
     worst = 0.0
     for dtype in dtypes:
         for i, shape in enumerate(shapes):
@@ -590,14 +640,20 @@ def check_flash(shapes, dtypes) -> float:
             torch.cuda.synchronize()
             want = causal_attention_plain(q, k, v, scale=scale, window=window)
             err = float((got.float() - want.float()).abs().max())
-            tol = FLASH_TOL[dtype]
-            ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+            tol, row_tol = FLASH_TOL[dtype], FLASH_ROW_TOL[dtype]
+            row_err = row_rel_err(got, want)
+            fault_err = tile_fault_err(q, k, v, scale, window, want)
+            ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol) and row_err <= row_tol
+            fault = "" if fault_err is None else f" one-tile fault={fault_err:.3e}"
             print(
                 f"  flash_attention {str(dtype)[6:]} (B,S,H,KV,hd,window)={shape} {route(dtype, shape[4])}: "
-                f"max_abs_err={err:.3e} tol={tol} {'ok' if ok else 'MISMATCH'}"
+                f"max_abs_err={err:.3e} tol={tol} row_rel_err={row_err:.3e} tol={row_tol}{fault} "
+                f"{'ok' if ok else 'MISMATCH'}"
             )
             if not ok:
                 raise AssertionError(f"flash_attention disagrees with its plain version at {shape} {dtype}")
+            if fault_err is not None and fault_err <= row_tol:
+                raise AssertionError(f"FLASH_ROW_TOL cannot see a one-tile fault at {shape} {dtype}: {fault_err:.3e}")
             worst = max(worst, err)
     return worst
 
@@ -1453,7 +1509,8 @@ def main() -> int:
     kind = phase("device", phase_device)
     phase("build", phase_build)
     matmul_hgmma = phase("tensor cores: HGMMA in the block_matmul library", phase_tensor_cores, "block_matmul", "HGMMA")
-    hgmma = phase("tensor cores: HGMMA in the flash_attention library", phase_tensor_cores, "flash_attention", "HGMMA")
+    hgmma = phase("tensor cores: HGMMA in the flash_attention library", phase_tensor_cores, "flash_attention", "HGMMA",
+                  {rf"tc12flash_kernelILi{hd}E": FLASH_TC_HGMMA[hd] for hd in TENSOR_CORE_HEAD_DIMS})
     hmma = phase("tensor cores: HMMA in the wkv6 library", phase_tensor_cores, "wkv6", "HMMA")
     matmul_k, flash_k, wkv_k = KERNELS
     checks = {"block_matmul": phase("kernel vs plain: block_matmul", phase_kernel_vs_plain, matmul_k)}

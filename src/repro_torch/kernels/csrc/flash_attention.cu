@@ -21,16 +21,16 @@
 // Two routes, fixed by type and head size (kernels/flash_attention.py::route
 // mirrors this dispatch; neither gives way to the other at run time):
 //
-//   bfloat16, hd in {64, 128, 256}  -> tensor-core kernel (tc::flash_kernel)
-//   bfloat16, hd in {16, 32, 96}; every float32 shape -> CUDA-core kernel
-//                                                        (flash_kernel)
+//   bfloat16, hd in {64, 96, 128, 256} -> tensor-core kernel (tc::flash_kernel)
+//   bfloat16, hd in {16, 32}; every float32 shape -> CUDA-core kernel
+//                                                    (flash_kernel)
 //
 // float32 stays off the tensor cores: there they would compute in TF32,
 // which breaks the float32 tolerances.  hd 16 and 32 occur in tests only.
-// hd 96 (phi-3-vision: 3072 / 32 heads) stays on the CUDA cores: the
-// tensor-core kernel works on 64-column, 128-byte-swizzle panels
-// (tc::PANEL), which 96 columns do not fill, and padding q, k and v to 128
-// in the wrapper would copy them at every call and hide the route.
+// hd 96 (phi-3-vision: 3072 / 32 heads) is not a multiple of the 64-column,
+// 128-byte-swizzle panels the other head dims use; it takes 32-column,
+// 64-byte-swizzle panels instead (tc::Panel), so q, k and v are read as
+// they are, never padded to 128.
 //
 // What bounds it.  On the serving path (gemma3-1b: B = 2, S = 2048, H = 4,
 // KV = 1, hd = 256, bfloat16) one global layer needs about 17 GFLOP of
@@ -64,11 +64,15 @@
 //  - Shared memory holds the q tile once and a two-stage ring of (k, v)
 //    tiles of 64 keys (32 at hd 256, see kv_tile), loaded with 16-byte
 //    cp.async copies (rows past S zero-filled) while the previous tile is
-//    computed.  Every tile is stored in wgmma's canonical 128-byte-swizzle
-//    layout: 64-column (128-byte) panels of 8-row, 1024-byte atoms, the
-//    16-byte chunk c of row r at chunk c ^ (r % 8), from a 1024-byte-aligned
-//    base.  At hd 256 that is 32 KB + 2 x (16 + 16) KB = 96 KB, two blocks
-//    per SM; at hd 128, 80 KB.
+//    computed.  Every tile is stored in one of wgmma's canonical swizzled
+//    layouts, chosen by hd (tc::Panel).  At hd 64, 128 and 256: 64-column
+//    (128-byte) panels of 8-row, 1024-byte atoms, the 16-byte chunk c of row
+//    r at chunk c ^ (r % 8), from a 1024-byte-aligned base (128-byte
+//    swizzle).  At hd 96: three 32-column (64-byte) panels of 8-row,
+//    512-byte atoms, chunk c of row r at c ^ ((r >> 1) % 4), from a
+//    512-byte-aligned base (64-byte swizzle).  At hd 256 that is 32 KB +
+//    2 x (16 + 16) KB = 96 KB, two blocks per SM; at hd 128, 80 KB; at hd
+//    96, 60 KB.
 //  - S = q k^T is wgmma m64n64k16 (m64n32k16 at hd 256) with both operands
 //    in shared memory over hd / 16 steps; k stored [key][d] is already
 //    K-major, so no transpose.
@@ -83,8 +87,9 @@
 //    That rounding is the TPU kernel's cast of p to v's type; l sums p
 //    before it.  v stored [key][d] is MN-major for B, which bfloat16 wgmma
 //    reads with its transpose bit, so there is no transposed copy.  One
-//    m64n64k16 per 64-column panel of v keeps each B operand inside one
-//    swizzle atom along N, so only the stride between 8-key groups matters.
+//    wgmma per panel of v (m64n64k16, or m64n32k16 on hd 96's 32-column
+//    panels) keeps each B operand inside one swizzle atom along N, so only
+//    the stride between 8-key groups matters.
 //  - Generic-proxy writes (cp.async) are ordered before the async proxy's
 //    reads (wgmma) by fence.proxy.async and a barrier.
 //  - GQA packing (the query heads of one KV head stacked into the 64 rows)
@@ -360,7 +365,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core route: bfloat16, hd in {64, 128, 256}.  See the note at the top.
+// Tensor-core route: bfloat16, hd in {64, 96, 128, 256}.  See the note at the
+// top.
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -368,9 +374,28 @@ using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 128;   // one warpgroup
 constexpr int BQ = 64;         // query rows per block: wgmma's M
-constexpr int PANEL = 64;      // bfloat16 columns in a 128-byte swizzle panel
-constexpr int ATOM = 1024;     // bytes in one 8-row swizzle atom
 constexpr float LOG2E = 1.4426950408889634f;
+
+// The swizzle panels of a tile, chosen by head_dim.  wgmma reads a tile in
+// panels as wide as its swizzle, stored one after another: a panel row is
+// 128 bytes (64 bfloat16 columns) when hd is a multiple of 64, else 64
+// bytes (32 columns: hd 96 is three panels).  An atom is 8 rows of a panel.
+// The 16-byte chunk c of a panel's row r lies at chunk c ^ (r % 8) of the
+// row at 128 bytes (the byte address's bits 4-6 XOR bits 7-9: CUTLASS's
+// Swizzle<3,4,3>), at chunk c ^ ((r >> 1) % 4) at 64 (bits 4-5 XOR bits 7-8:
+// Swizzle<2,4,3>); load_tile writes them so.  Tiles start on an atom
+// boundary, so the address bits are the tile's own.
+template <int HD>
+struct Panel {
+  static_assert(HD % 32 == 0, "whole 32-column panels");
+  static constexpr bool WIDE = HD % 64 == 0;
+  static constexpr int COLS = WIDE ? 64 : 32;   // bfloat16 columns of a panel
+  static constexpr int ROW = 2 * COLS;          // bytes of a panel row
+  static constexpr int CHUNKS = ROW / 16;       // 16-byte chunks of a panel row
+  static constexpr int ATOM = 8 * ROW;          // bytes of an 8-row atom
+  static constexpr int STEPS = ROW / 32;        // k16 steps (32 bytes) in a panel row
+  static constexpr uint64_t MODE = WIDE ? 1 : 2;   // descriptor bits 62-63: 128B or 64B swizzle
+};
 
 // Keys per KV tile: N of q k^T, K of P v.  At hd 256 a 64-key tile needs
 // more than the 255 registers a thread may have (the output fragment alone
@@ -385,7 +410,7 @@ struct Smem {
   static constexpr int Q = BQ * HD * 2;        // bytes of the q tile
   static constexpr int KV = BK * HD * 2;       // bytes of a k or a v tile
   static constexpr int STAGE = 2 * KV;         // k then v
-  static constexpr size_t BYTES = Q + 2 * STAGE + ATOM;   // + alignment slack
+  static constexpr size_t BYTES = Q + 2 * STAGE + Panel<HD>::ATOM;   // + alignment slack
 };
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -394,12 +419,16 @@ __device__ __forceinline__ void cp_async_commit() {
 
 // Copies rows [row0, row0 + ROWS) of an (S, HD) bfloat16 matrix whose rows
 // lie `stride` elements apart into the tile at shared address `dst`: one
-// 64-column panel of ROWS x 128 bytes after another, the 16-byte chunk c of
-// row r at chunk c ^ (r % 8) of its row.  Rows at or past s_len are
-// zero-filled (src-size 0; the source address then points at row 0).
+// panel of ROWS rows after another (Panel<HD>), each 16-byte chunk at its
+// swizzled place in its row.  Rows at or past s_len are zero-filled
+// (src-size 0; the source address then points at row 0).  The swizzle is
+// written out here, not in a member of Panel: inlined from a helper, the
+// XORs take their operands in another order and the SASS at hd 64, 128 and
+// 256 changes.
 template <int HD, int ROWS>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, size_t stride,
                                           int row0, int s_len) {
+  using P = Panel<HD>;
   constexpr int CHUNKS = HD / 8;   // 16-byte chunks per row
   static_assert(ROWS * CHUNKS % THREADS == 0, "whole chunks per thread");
 #pragma unroll
@@ -410,19 +439,21 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, size_t 
     const int g = row0 + r;
     const bool in = g < s_len;
     const bf16* from = src + static_cast<size_t>(in ? g : 0) * stride + c * 8;
-    const uint32_t to = dst + (c / 8) * (ROWS * 128) + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+    const uint32_t to = dst + (c / P::CHUNKS) * (ROWS * P::ROW) + r * P::ROW +
+                        ((P::WIDE ? ((c % 8) ^ (r % 8)) : ((c % 4) ^ ((r >> 1) % 4))) << 4);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(to), "l"(from), "r"(in ? 16 : 0) : "memory");
   }
 }
 
-// wgmma's shared-memory matrix descriptor with the 128-byte swizzle:
+// wgmma's shared-memory matrix descriptor with swizzle MODE (Panel::MODE):
 // start address, leading and stride byte offsets, each in 16-byte units.
+template <uint64_t MODE>
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
          static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         1ull << 62;
+         MODE << 62;
 }
 
 // Keeps the compiler from moving reads or writes of a register that an
@@ -470,15 +501,26 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
   }
 }
 
-// d (64 x 64, float32) += a (64 x 16, bfloat16 pairs in registers) b, with b
-// (16 x 64) MN-major in shared memory (the transpose bit set).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+// d (64 x N, float32) += a (64 x 16, bfloat16 pairs in registers) b, with b
+// (16 x N) MN-major in shared memory (the transpose bit set); N is 32 or 64.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else {
+    static_assert(N == 32, "N is 32 or 64");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -491,13 +533,15 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ o, int s_len, int h_q,
              int h_kv, float scale, int window) {
-  constexpr int NP = HD / PANEL;   // 64-column panels of q, k, v and the output
+  using P = Panel<HD>;
+  constexpr int NP = HD / P::COLS;   // panels of q, k, v and the output
+  constexpr int NF = P::COLS / 2;    // floats of one panel's output fragment
   using S = Smem<HD>;
   constexpr int BK = S::BK;
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t q_s =
-      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + ATOM - 1) & ~uint32_t(ATOM - 1);
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + P::ATOM - 1) & ~uint32_t(P::ATOM - 1);
   const uint32_t ring = q_s + S::Q;   // stage st: k at ring + st * STAGE, v at + KV
 
   const int lane = threadIdx.x % 32;
@@ -535,11 +579,11 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int col = 2 * (lane % 4);
   const float scale2 = scale * LOG2E;
 
-  float acc[NP][32];   // the output, one m64n64 fragment per panel
+  float acc[NP][NF];   // the output, one m64 x COLS fragment per panel
 #pragma unroll
   for (int p = 0; p < NP; ++p)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[p][i] = 0.0f;
+    for (int i = 0; i < NF; ++i) acc[p][i] = 0.0f;
   float sc[BK / 2];    // scores, then probabilities, of one tile
   float m0 = NEG_INF, m1 = NEG_INF;   // running max of rows qp0, qp1 (base 2)
   float l0 = 0.0f, l1 = 0.0f;         // this thread's part of their sums
@@ -559,8 +603,8 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();     // q and this tile's k, v have landed, from every thread
 
     // S = q k^T over hd / 16 steps of 16: a step's 32 bytes lie inside one
-    // 128-byte panel row, so the descriptors advance by 32 bytes within a
-    // panel and by a whole panel every 4 steps.
+    // panel row, so the descriptors advance by 32 bytes within a panel and
+    // by a whole panel every P::STEPS steps (4 at 128 bytes, 2 at 64).
     // The first step overwrites sc; zeroing it here, and not carrying the
     // last tile's probabilities into the wgmma, keeps them from staying live
     // in registers across P v.
@@ -569,9 +613,10 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      const uint32_t step = (kk % 4) * 32;
-      wgmma_ss<BK>(sc, smem_desc(q_s + (kk / 4) * (BQ * 128) + step, 16, ATOM),
-               smem_desc(ks + (kk / 4) * (BK * 128) + step, 16, ATOM), kk > 0);
+      const uint32_t step = (kk % P::STEPS) * 32;
+      wgmma_ss<BK>(sc, smem_desc<P::MODE>(q_s + (kk / P::STEPS) * (BQ * P::ROW) + step, 16, P::ATOM),
+                   smem_desc<P::MODE>(ks + (kk / P::STEPS) * (BK * P::ROW) + step, 16, P::ATOM),
+                   kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -627,7 +672,7 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int p = 0; p < NP; ++p)
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[p][i] *= (i / 2) % 2 ? corr1 : corr0;
+      for (int i = 0; i < NF; ++i) acc[p][i] *= (i / 2) % 2 ? corr1 : corr0;
 
     // P as wgmma's A fragment for keys [16 kk, 16 kk + 16): the score
     // fragment's columns 16 kk .. 16 kk + 15 are its registers 8 kk .. 8 kk + 7.
@@ -637,15 +682,16 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
 
-    // O += P v: per 16-key step, one m64n64k16 per 64-column panel of v.
-    // Within a panel an 8-key atom is 1024 bytes; the next 8 keys lie one
+    // O += P v: per 16-key step, one m64 x COLS x k16 per panel of v.
+    // Within a panel an 8-key atom is P::ATOM bytes; the next 8 keys lie one
     // atom on, which both offsets name (a panel spans one atom along N).
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
       for (int p = 0; p < NP; ++p)
-        wgmma_rs(acc[p], pa[kk], smem_desc(vs + p * (BK * 128) + kk * 16 * 128, ATOM, ATOM));
+        wgmma_rs<P::COLS>(acc[p], pa[kk],
+                          smem_desc<P::MODE>(vs + p * (BK * P::ROW) + kk * 16 * P::ROW, P::ATOM, P::ATOM));
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
@@ -665,8 +711,8 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int p = 0; p < NP; ++p)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = p * PANEL + 8 * j + col;
+    for (int j = 0; j < P::COLS / 8; ++j) {
+      const int c = p * P::COLS + 8 * j + col;
       if (qp0 < s_len)
         *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(qp0) * q_stride + c) =
             __floats2bfloat162_rn(acc[p][4 * j] * inv0, acc[p][4 * j + 1] * inv0);
@@ -705,8 +751,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int s, i
 // (b, s, kv, hd), all contiguous, with kv dividing h; window > 0 keeps only
 // the last `window` keys of each query.  hd is 16, 32, 64, 96, 128 or 256;
 // is_bf16 picks bfloat16 (1) or float32 (0) for every tensor.  bfloat16 at
-// hd 64, 128 and 256 takes the tensor-core kernel and needs 16-byte-aligned
-// bases; everything else (hd 96 included) the CUDA-core kernel.  Launches on
+// hd 64, 96, 128 and 256 takes the tensor-core kernel and needs
+// 16-byte-aligned bases; everything else the CUDA-core kernel.  Launches on
 // `stream` without synchronising and returns the CUDA error of the launch (0
 // when it was accepted).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
@@ -719,7 +765,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     case 16: return launch<__nv_bfloat16, 16>(q, k, v, o, b, s, h, kv, scale, window, st);
     case 32: return launch<__nv_bfloat16, 32>(q, k, v, o, b, s, h, kv, scale, window, st);
     case 64: return tc::launch<64>(q, k, v, o, b, s, h, kv, scale, window, st);
-    case 96: return launch<__nv_bfloat16, 96>(q, k, v, o, b, s, h, kv, scale, window, st);
+    case 96: return tc::launch<96>(q, k, v, o, b, s, h, kv, scale, window, st);
     case 128: return tc::launch<128>(q, k, v, o, b, s, h, kv, scale, window, st);
     case 256: return tc::launch<256>(q, k, v, o, b, s, h, kv, scale, window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);

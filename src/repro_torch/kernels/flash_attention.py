@@ -11,11 +11,12 @@ argument.  Positions are ``0 .. S-1`` for queries and keys alike, as on the
 prefill and full-forward paths.
 
 The source holds two kernels, and ``route`` says which one a call takes, as
-the C dispatch does: bfloat16 at head_dim 64, 128 or 256 runs both products
-on the tensor cores (wgmma); bfloat16 at 16, 32 or 96 and every float32
-shape run float32 FMAs on the CUDA cores (float32 on the tensor cores would
-be TF32; 96 columns do not fill the tensor-core kernel's 64-column
-panels).  The routing is fixed; neither kernel stands in for the other.
+the C dispatch does: bfloat16 at head_dim 64, 96, 128 or 256 runs both
+products on the tensor cores (wgmma; 96 on 32-column, 64-byte-swizzle
+panels, the others on 64-column, 128-byte ones); bfloat16 at 16 or 32 and
+every float32 shape run float32 FMAs on the CUDA cores (float32 on the
+tensor cores would be TF32).  The routing is fixed; neither kernel stands
+in for the other, and no input is padded to another head_dim.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)   # the kernels' instantiations
-TENSOR_CORE_HEAD_DIMS = (64, 128, 256)   # bfloat16 ones on the tensor cores
+TENSOR_CORE_HEAD_DIMS = (64, 96, 128, 256)   # bfloat16 ones on the tensor cores
 _MAX_GRID_Y = 65535                  # B * H blocks on the CUDA-core kernel's gridDim.y
 
 

@@ -112,15 +112,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(q, k, v, error):
 
 @pytest.mark.parametrize("head_dim", fa_mod.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_route_puts_bf16_at_64_128_256_on_the_tensor_cores(dtype, head_dim):
-    want = "tensor-core" if dtype == torch.bfloat16 and head_dim in (64, 128, 256) else "cuda-core"
+def test_route_puts_bf16_at_64_96_128_256_on_the_tensor_cores(dtype, head_dim):
+    want = "tensor-core" if dtype == torch.bfloat16 and head_dim in (64, 96, 128, 256) else "cuda-core"
     assert fa_mod.route(dtype, head_dim) == want
 
 
 def test_head_dims_mirror_the_c_dispatch():
     """``HEAD_DIMS`` are the cases of both of ``flash_attention.cu``'s
     switches: the float32 ``dispatch`` and the bfloat16 one, where 96 goes
-    to the CUDA-core ``launch``."""
+    to the tensor-core ``tc::launch``."""
     src = (fa_mod.build.CSRC_DIR / "flash_attention.cu").read_text()
     dispatch = src[src.index("int dispatch("):]
     dispatch = dispatch[: dispatch.index("default:")]
@@ -128,7 +128,8 @@ def test_head_dims_mirror_the_c_dispatch():
     bf16_switch = entry[entry.index("switch (hd)"):]
     assert tuple(int(d) for d in re.findall(r"case (\d+): return launch<T, \1>", dispatch)) == fa_mod.HEAD_DIMS
     assert tuple(int(d) for d in re.findall(r"case (\d+):", bf16_switch)) == fa_mod.HEAD_DIMS
-    assert "case 96: return launch<__nv_bfloat16, 96>" in bf16_switch
+    assert "case 96: return tc::launch<96>" in bf16_switch
+    assert "launch<__nv_bfloat16, 96>" not in src
 
 
 def test_route_mirrors_the_c_dispatch():
@@ -150,12 +151,14 @@ def _misaligned(shape, dtype):
 
 @pytest.mark.parametrize("which", ["q", "k", "v"])
 def test_alignment_check_rejects_a_misaligned_view_on_the_tensor_core_route(which):
-    tensors = {name: torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16) for name in "qkv"}
-    tensors[which] = _misaligned((1, 4, 2, 64), torch.bfloat16)
-    assert tensors[which].is_contiguous() and tensors[which].data_ptr() % 16
-    with pytest.raises(ValueError, match="16-byte-aligned"):
-        fa_mod.check_alignment("tensor-core", *tensors.values())
-    fa_mod.check_alignment("cuda-core", *tensors.values())   # reads element by element
+    for hd in (64, 96):
+        assert fa_mod.route(torch.bfloat16, hd) == "tensor-core"
+        tensors = {name: torch.zeros(1, 4, 2, hd, dtype=torch.bfloat16) for name in "qkv"}
+        tensors[which] = _misaligned((1, 4, 2, hd), torch.bfloat16)
+        assert tensors[which].is_contiguous() and tensors[which].data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte-aligned"):
+            fa_mod.check_alignment(fa_mod.route(torch.bfloat16, hd), *tensors.values())
+        fa_mod.check_alignment("cuda-core", *tensors.values())   # reads element by element
 
 
 def test_alignment_check_takes_aligned_tensors():
@@ -201,13 +204,17 @@ def test_cuda_kernel_matches_plain_version(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain_version_at_head_dim_96(dtype):
-    """phi-3-vision's head_dim on the CUDA-core route: its path shape's
-    heads, global and windowed, at one token, a ragged tile and a length
-    past several tiles."""
+    """phi-3-vision's head_dim, bfloat16 on the tensor-core route and
+    float32 on the CUDA cores: its path shape's heads, global and windowed,
+    at one token, a ragged tile, a length past several tiles, GQA, and a
+    ragged length under a window smaller than a tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    assert fa_mod.route(getattr(torch, dtype), 96) == "cuda-core"
-    for b, s, h, kv, window in [(1, 1, 32, 32, 0), (2, 33, 4, 2, 0), (1, 700, 32, 32, 0), (2, 300, 8, 8, 64)]:
+    assert fa_mod.route(getattr(torch, dtype), 96) == ("tensor-core" if dtype == "bfloat16" else "cuda-core")
+    for b, s, h, kv, window in [
+        (1, 1, 32, 32, 0), (2, 33, 4, 2, 0), (1, 700, 32, 32, 0), (2, 300, 8, 8, 64),
+        (2, 256, 8, 2, 0), (1, 2047, 4, 1, 17),
+    ]:
         _, (tq, tk, tv) = _inputs(b, s, h, kv, 96, dtype, seed=s)
         tq, tk, tv = tq.cuda(), tk.cuda(), tv.cuda()
         before = causal_attention.launches
@@ -216,3 +223,171 @@ def test_cuda_kernel_matches_plain_version_at_head_dim_96(dtype):
         assert causal_attention.launches == before + 1
         want = causal_attention_plain(tq, tk, tv, scale=96**-0.5, window=window)
         torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core kernel's shared-memory tiles, modelled on the CPU: where
+# load_tile writes each 16-byte chunk, and where wgmma's descriptors read it.
+# ---------------------------------------------------------------------------
+# The PTX ISA's wgmma matrix descriptor: start address, leading and stride
+# byte offsets in 16-byte units at bits 0, 16 and 32, and the swizzle at bits
+# 62-63 (1: 128 bytes, 2: 64 bytes, 3: 32 bytes).  A swizzle of W bytes XORs
+# the address's 16-byte chunk bits (4 .. 3 + log2(W / 16)) with the bits from
+# 7 up (CUTLASS's Swizzle<log2(W / 16), 4, 3>), and lays a K-major operand
+# (and a transposed, MN-major one) out in rows of W bytes, 8 rows to an atom.
+SWIZZLE_BYTES = {1: 128, 2: 64, 3: 32}
+TC_HEAD_DIMS = (64, 96, 128, 256)
+BQ = 64
+
+
+def _cu_source():
+    return (fa_mod.build.CSRC_DIR / "flash_attention.cu").read_text()
+
+
+def _flat(src):
+    return " ".join(src.split())
+
+
+def _panel(hd):
+    """``tc::Panel<hd>``, its constants parsed from ``flash_attention.cu``."""
+    src = _cu_source()
+    wide_div = re.search(r"WIDE = HD % (\d+) == 0;", src)
+    cols = re.search(r"COLS = WIDE \? (\d+) : (\d+);", src)
+    mode = re.search(r"MODE = WIDE \? (\d+) : (\d+);", src)
+    swz = re.search(
+        r"P::WIDE \? \(\(c % (\d+)\) \^ \(r % (\d+)\)\) : \(\(c % (\d+)\) \^ \(\(r >> (\d+)\) % (\d+)\)\)", src
+    )
+    assert wide_div and cols and mode and swz, "tc::Panel's definition changed"
+    for derived in ("ROW = 2 * COLS;", "CHUNKS = ROW / 16;", "ATOM = 8 * ROW;", "STEPS = ROW / 32;"):
+        assert derived in src, derived
+    wide = hd % int(wide_div.group(1)) == 0
+    pick = 1 if wide else 2
+    ncols = int(cols.group(pick))
+    row = 2 * ncols
+    m = [int(g) for g in swz.groups()]
+    if wide:
+        swizzle = lambda c, r: (c % m[0]) ^ (r % m[1])  # noqa: E731
+    else:
+        swizzle = lambda c, r: (c % m[2]) ^ ((r >> m[3]) % m[4])  # noqa: E731
+    return {"cols": ncols, "row": row, "chunks": row // 16, "atom": 8 * row, "steps": row // 32,
+            "mode": int(mode.group(pick)), "swizzle": swizzle}
+
+
+def _kv_tile(hd):
+    """``tc::kv_tile<hd>()``, its values parsed from ``flash_attention.cu``."""
+    tile = re.search(r"return HD == (\d+) \? (\d+) : (\d+);", _cu_source())
+    assert tile, "tc::kv_tile's definition changed"
+    at, small, other = (int(g) for g in tile.groups())
+    return small if hd == at else other
+
+
+def _load_tile(hd, rows, base):
+    """load_tile's address map: (row, 16-byte chunk of the row) -> the
+    shared address it is copied to."""
+    p = _panel(hd)
+    assert "(c / P::CHUNKS) * (ROWS * P::ROW) + r * P::ROW + ((P::WIDE ? " in _flat(_cu_source())
+    return {
+        (r, c): base + (c // p["chunks"]) * (rows * p["row"]) + r * p["row"] + (p["swizzle"](c, r) << 4)
+        for r in range(rows) for c in range(hd // 8)
+    }
+
+
+def _smem_desc(addr, lbo, sbo, mode):
+    """``tc::smem_desc<mode>``."""
+    src = _flat(_cu_source())
+    for field in ("((addr >> 4) & 0x3FFF)", "((lbo >> 4) & 0x3FFF) << 16", "((sbo >> 4) & 0x3FFF) << 32",
+                  "MODE << 62;"):
+        assert field in src, field
+    return ((addr >> 4) & 0x3FFF) | ((lbo >> 4) & 0x3FFF) << 16 | ((sbo >> 4) & 0x3FFF) << 32 | mode << 62
+
+
+def _hw_read(desc, row, chunk):
+    """The shared address wgmma reads for ``row`` (the 8-row-strided
+    dimension: M or N of a K-major operand, K of an MN-major one) and the
+    16-byte ``chunk`` of that row inside one swizzle atom, per the ISA."""
+    start = (desc & 0x3FFF) << 4
+    sbo = ((desc >> 32) & 0x3FFF) << 4
+    width = SWIZZLE_BYTES[desc >> 62]
+    assert start % width + 16 * (chunk + 1) <= width, "a read leaves its swizzle row"
+    addr = start + (row // 8) * sbo + (row % 8) * width + 16 * chunk
+    return addr ^ (((addr >> 7) & (width // 16 - 1)) << 4)
+
+
+@pytest.mark.parametrize("hd", TC_HEAD_DIMS)
+def test_load_tile_map_is_a_bijection_onto_the_tile(hd):
+    """Every 16-byte chunk of a q (64-row) or k / v (kv_tile-row) tile is
+    written once, and the tile is filled, from an atom-aligned base."""
+    for rows in (BQ, _kv_tile(hd)):
+        base = 2 * 1024
+        addrs = sorted(_load_tile(hd, rows, base).values())
+        assert addrs == list(range(base, base + rows * hd * 2, 16))
+
+
+@pytest.mark.parametrize("hd", TC_HEAD_DIMS)
+def test_panel_takes_the_ptx_swizzle_of_its_row_width(hd):
+    """A panel row is as wide as the descriptor's swizzle: 128 bytes when
+    hd is a multiple of 64, else (hd 96) 64; its XOR is the ISA's."""
+    p = _panel(hd)
+    assert SWIZZLE_BYTES[p["mode"]] == p["row"] == (128 if hd % 64 == 0 else 64)
+    assert hd % p["cols"] == 0
+    for r in range(8):
+        for c in range(p["chunks"]):
+            addr = r * p["row"] + 16 * c
+            assert addr ^ (((addr >> 7) & (p["row"] // 16 - 1)) << 4) == r * p["row"] + 16 * p["swizzle"](c, r)
+
+
+@pytest.mark.parametrize("hd", TC_HEAD_DIMS)
+def test_q_kt_descriptors_read_the_chunks_load_tile_wrote(hd):
+    """S = q k^T: at k16 step kk the descriptor of q (and of k) reads, for
+    each row, the two chunks of columns 16 kk .. 16 kk + 15 that load_tile
+    put there."""
+    p = _panel(hd)
+    src = _flat(_cu_source())
+    assert "const uint32_t step = (kk % P::STEPS) * 32;" in src
+    assert "smem_desc<P::MODE>(q_s + (kk / P::STEPS) * (BQ * P::ROW) + step, 16, P::ATOM)" in src
+    assert "smem_desc<P::MODE>(ks + (kk / P::STEPS) * (BK * P::ROW) + step, 16, P::ATOM)" in src
+    base = 3 * 1024
+    for rows in (BQ, _kv_tile(hd)):
+        wrote = _load_tile(hd, rows, base)
+        for kk in range(hd // 16):
+            step = (kk % p["steps"]) * 32
+            desc = _smem_desc(base + (kk // p["steps"]) * (rows * p["row"]) + step, 16, p["atom"], p["mode"])
+            for r in range(rows):
+                for half in range(2):
+                    assert _hw_read(desc, r, half) == wrote[r, 2 * kk + half], (rows, kk, r, half)
+
+
+@pytest.mark.parametrize("hd", TC_HEAD_DIMS)
+def test_p_v_descriptors_read_the_chunks_load_tile_wrote(hd):
+    """O += P v: at 16-key step kk, the MN-major descriptor of panel p of v
+    reads, for each of the 16 keys (rows of 8-key groups, SBO apart), the
+    panel's column chunks that load_tile put there; one wgmma's N, the
+    panel's columns, spans exactly one swizzle row, so LBO is never used."""
+    p = _panel(hd)
+    src = _flat(_cu_source())
+    assert "wgmma_rs<P::COLS>(acc[p], pa[kk], smem_desc<P::MODE>(vs + p * (BK * P::ROW) + kk * 16 * P::ROW, P::ATOM, P::ATOM));" in src
+    assert 2 * p["cols"] == SWIZZLE_BYTES[p["mode"]]
+    bk = _kv_tile(hd)
+    base = 5 * 1024
+    wrote = _load_tile(hd, bk, base)
+    for kk in range(bk // 16):
+        for panel in range(hd // p["cols"]):
+            desc = _smem_desc(base + panel * (bk * p["row"]) + kk * 16 * p["row"], p["atom"], p["atom"], p["mode"])
+            for key in range(16):
+                for nc in range(p["chunks"]):
+                    assert _hw_read(desc, key, nc) == wrote[16 * kk + key, panel * p["chunks"] + nc], (kk, panel, key, nc)
+
+
+@pytest.mark.parametrize("hd", TC_HEAD_DIMS)
+def test_tiles_start_on_swizzle_atoms(hd):
+    """The swizzle reads the address's own bits, so q, and each stage's k
+    and v, start on an atom of their panel width (``tc::Smem``, from a base
+    rounded up to an atom), and the slack covers the rounding."""
+    p = _panel(hd)
+    src = _flat(_cu_source())
+    assert "+ P::ATOM - 1) & ~uint32_t(P::ATOM - 1);" in src
+    assert "static constexpr size_t BYTES = Q + 2 * STAGE + Panel<HD>::ATOM;" in src
+    q_bytes, kv_bytes = BQ * hd * 2, _kv_tile(hd) * hd * 2
+    for offset in (0, q_bytes, q_bytes + kv_bytes, q_bytes + 2 * kv_bytes, q_bytes + 3 * kv_bytes):
+        assert offset % p["atom"] == 0
+    assert q_bytes + 4 * kv_bytes + p["atom"] <= 227 * 1024

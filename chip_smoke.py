@@ -7,7 +7,8 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. device: the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build: every CUDA source of the port (``src/repro_torch/kernels/csrc``),
+2. build: every CUDA source of the port (``src/repro_torch/kernels/csrc``:
+   block_matmul, flash_attention, its backward flash_attention_bwd, wkv6),
    compiled in parallel from the checkout into ``build/repro_torch``, with
    each kernel's registers and spills; then the count of tensor-core
    instructions in the SASS of the block_matmul and flash_attention
@@ -46,6 +47,22 @@ and prints no result line):
    kernel), MoE layers at a capacity with no drops; then hymba's SSM heads
    at full width on 256 tokens, the sequential scan against the chunked
    one (also at strong decays);
+7a. flash_attention's backward kernel against ``causal_attention_bwd_plain``
+   on the card: the shapes of phase 3 plus GQA 8, float32 and bfloat16, and
+   the train paths' float32 shapes (qwen1.5-0.5b (2, 2048, 16, 16, 64);
+   gemma3-1b (2, 2048, 4, 1, 256), window 512 and global); every dq, dk, dv
+   row within ``GRAD_ROW_TOL``, and a planted one-tile fault in dk past it;
+7b. train path: ``make_train_step`` of qwen1.5-0.5b and gemma3-1b at full
+   width and depth, float32, 4 microbatches of 2 x 2048 (cut from
+   ``train_4k``), one warm and 3 timed steps on ``SyntheticTokens``, one
+   model at a time: every parameter gets a finite, non-zero gradient, the
+   forward kernel launches twice a layer and microbatch (remat) and the
+   backward kernel once; step ms, tokens/s, peak memory, the device's busy
+   share and the backward kernel's share of it under ``torch.profiler``;
+7c. train correctness at full width and 2 layers, float32: the gradient of
+   ``forward_loss`` through the kernels against the same model with the
+   plain versions (every leaf within 1e-4 of its norm), 4 microbatches
+   against 1, and qwen's loss falling by 0.5 over 30 steps;
 8. the device stepper's recurrence: ``lindley_ends`` on the card at 7,
    4097 and 2^20 requests (a clock past 5,000 s) against the float64
    ``_server_ends``, within 2e-6 s of delay;
@@ -65,12 +82,14 @@ and prints no result line):
     identical re-plans, means within 1e-4, planner ms per re-plan;
 13. times: CUDA-event times of each kernel at its path's shapes, its plain
     version and the one PyTorch call that computes the same function (where
-    there is one), beside the card's bound, launched eagerly and replayed
-    from a CUDA graph (device time alone).
+    there is one; for the backward kernel, ``torch.autograd.grad`` through
+    ``F.scaled_dot_product_attention``), beside the card's bound, launched
+    eagerly and replayed from a CUDA graph (device time alone).
 
 Phases 8-12 run torch ops, not hand kernels (the reference jits them; none
 reaches a Pallas kernel): their times, launches per call and bounds go on
-a ``{"torch_ops": ...}`` line.  The line before the last is a JSON object
+a ``{"torch_ops": ...}`` line, and the train paths' readings on a
+``{"train": ...}`` line.  The line before the last is a JSON object
 with one entry per kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Exits non-zero without a result when no CUDA device is present.
 """
@@ -108,10 +127,14 @@ from repro_torch.core.plan_tables import EvalTables  # noqa: E402
 from repro_torch.core.planner import FCFS, DisciplineSpec, Plan, TenantSpec, validate_plan  # noqa: E402
 from repro_torch.core.torch_eval import TorchPlanEvaluator  # noqa: E402
 from repro_torch.hw.specs import EDGE_TPU_PLATFORM  # noqa: E402
+from repro_torch.data.pipeline import batches_for_arch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     TENSOR_CORE_HEAD_DIMS,
     causal_attention,
+    causal_attention_bwd,
+    causal_attention_bwd_plain,
     causal_attention_plain,
     route,
 )
@@ -127,6 +150,8 @@ from repro_torch.serving import torch_stepper  # noqa: E402
 from repro_torch.serving.controller import run_adaptive  # noqa: E402
 from repro_torch.serving.simulator import _server_ends, make_backend, simulate  # noqa: E402
 from repro_torch.serving.workload import RatePhase, Trace, dynamic_trace  # noqa: E402
+from repro_torch.training import AdamWConfig, TrainConfig, adamw_init, make_train_step  # noqa: E402
+from repro_torch.training.tree import leaves_with_paths, tree_unflatten  # noqa: E402
 from repro_torch.models.cnn import (  # noqa: E402
     PAPER_CNN_SPECS,
     build_executable,
@@ -173,6 +198,15 @@ KERNELS = [
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6.py:30",
         "wrapper": wkv6,
+    },
+    {
+        # The gradient of flash_attention's function, which the JAX package
+        # leaves to XLA's autodiff of models/layers.py:103 attention_chunked.
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:26",
+        "wrapper": causal_attention_bwd,
     },
 ]
 
@@ -359,7 +393,7 @@ def phase_main_path() -> tuple[Plan, dict[str, int], dict[str, int]]:
     # One pointwise product per prefix stage, each on the card; the CNNs
     # have no attention or recurrence.
     expected = REQUESTS * (sum(plan.partition) + sum(FORCED_PLAN.partition))
-    assert launches == {"block_matmul": expected, "flash_attention": 0, "wkv6": 0}, (launches, expected)
+    assert launches == {"block_matmul": expected, "flash_attention": 0, "wkv6": 0, "flash_attention_bwd": 0}, (launches, expected)
     # Every product of the path is float32 and takes the CUDA-core route.
     assert routes == {"cuda-core": expected}, (dict(routes), expected)
     return plan, launches, dict(routes)
@@ -766,11 +800,13 @@ def profiler_ranges():
             setattr(mod, attr, fn)
 
 
-def device_breakdown(label: str, fn) -> None:
+def device_breakdown(label: str, fn) -> tuple[float, float, list] | None:
     """Device time by kernel over one call of ``fn`` (torch.profiler), the
     share of the wall time in which the device was busy, and the device
     time of the kernels launched inside each of RANGES.  The profiler's own
-    host overhead lengthens the wall time, so that share is a lower bound."""
+    host overhead lengthens the wall time, so that share is a lower bound.
+    Returns (busy ms, wall ms, [(ms, count, kernel name)]), or None when the
+    profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -793,7 +829,7 @@ def device_breakdown(label: str, fn) -> None:
     busy = sum(t for t, _, _ in kernels)
     if busy <= 0:
         print(f"  {label}: the profiler saw no device time (busy share not measured)")
-        return
+        return None
     print(
         f"  {label}: device busy {busy:.3f} ms of {wall_ms:.3f} ms wall under the profiler "
         f"({busy / wall_ms:.2%}); device time by kernel:"
@@ -804,6 +840,7 @@ def device_breakdown(label: str, fn) -> None:
         if e.key in names and e.device_type == DeviceType.CPU and e.count:
             t = e.device_time_total / 1e3
             print(f"    range {e.key} x{e.count}: kernels inside it {t:.3f} ms, {t / busy:.2%} of the device time")
+    return busy, wall_ms, kernels
 
 
 def phase_zoo_path(name: str, calls: Counter) -> dict[str, int]:
@@ -835,6 +872,7 @@ def phase_zoo_path(name: str, calls: Counter) -> dict[str, int]:
         "block_matmul": 0,
         "flash_attention": cfg.n_layers if cfg.block in ("transformer", "hymba") else 0,
         "wkv6": cfg.n_layers if cfg.block == "rwkv6" else 0,
+        "flash_attention_bwd": 0,
     }
     print(f"  launches: after prefill {after_prefill}, after {ZOO_DECODE} decode steps {after_decode}")
     assert after_prefill == after_decode == want, (after_prefill, after_decode, want)
@@ -1075,6 +1113,368 @@ def phase_zoo_times(calls: Counter) -> dict[str, dict]:
         ))
         totals[name] = out
     return totals
+
+
+# --------------------------------------------------------------------------
+# Training on the card: flash_attention's backward kernel, then microbatched
+# float32 train steps of qwen1.5-0.5b and gemma3-1b at full width and depth
+# --------------------------------------------------------------------------
+TRAIN = {"qwen1.5-0.5b": ARCHS["qwen1.5-0.5b"], "gemma3-1b": ARCHS["gemma3-1b"]}
+# Cut from INPUT_SHAPES["train_4k"] (a global batch of 256 x 4096): 8 x 2048
+# positions a step, in 4 microbatches of 2 x 2048; one warm step, then
+# TRAIN_TIMED timed ones and one under the profiler.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_TIMED = 8, 2048, 4, 3
+TRAIN_LR = 3e-4
+# The backward kernel against its plain version, per row (one position of
+# one head of dq, dk or dv): the row's error norm over the plain row's norm,
+# that norm floored at GRAD_ROW_FLOOR times the RMS row norm of the three
+# plain gradients together.  A row whose attention is peaked has
+# ds = p (dp - delta) with dp ~ delta, two float32 sums of the same
+# products taken in different orders: its dq is near 0 (exactly 0 for the
+# first query, and all of dq and dk at S = 1) while its rounding is not
+# (2.4e-4 of a floor of 1e-2 of dq's own RMS at (2, 2048, 32, 32, 96) on
+# the card).  The limits are FLASH_ROW_TOL's, and a planted fault (one key
+# tile's dk missing one query tile, dk_tile_fault) must exceed them.
+GRAD_ROW_TOL = FLASH_ROW_TOL
+GRAD_ROW_FLOOR = 0.1
+# GQA 8 beside FLASH_TEST_SHAPES' and FLASH_RAGGED_SHAPES' groups of 1, 2
+# and 4 (hd 16, 32, 128; windows 0, 16 and S - 1).
+BWD_GROUP8_SHAPES = [(1, 100, 8, 1, 128, 0), (2, 77, 8, 1, 32, 16), (1, 300, 8, 1, 16, 299)]
+# The train path's calls (B, S, H, KV, hd, window), float32.
+TRAIN_BWD_SHAPES = [(2, 2048, 16, 16, 64, 0), (2, 2048, 4, 1, 256, 512), (2, 2048, 4, 1, 256, 0)]
+# Train correctness at full width and 2 layers: kernels vs plain versions
+# (every gradient leaf within TRAIN_GRAD_TOL of its norm; batch 2 x 2048),
+# 4 microbatches vs 1 (tests/test_training.py's tolerances; batch 8 x 512,
+# so that one microbatch's float32 logits stay near 2.5 GB), and the loss
+# falling by LOSS_FALL over LOSS_STEPS steps (test_loss_decreases_qwen_reduced).
+TRAIN_CHECK_LAYERS, TRAIN_GRAD_TOL = 2, 1e-4
+MICRO_CHECK_BATCH, MICRO_CHECK_SEQ = 8, 512
+# AdamW's first step moves each parameter by lr * g / (|g| + eps), about
+# lr * sign(g): where |g| is within rounding of 0 the two accumulation
+# orders may give it opposite signs and a move of 2 lr, past atol.  A
+# parameter may leave the test's tolerance only there: where the
+# 1-microbatch gradient is below MICRO_SIGN_TOL of its leaf's RMS (the two
+# orders differ by about 1e-6 of it), and at most MICRO_SIGN_SHARE of all.
+MICRO_SIGN_TOL, MICRO_SIGN_SHARE = 1e-4, 1e-5
+LOSS_STEPS, LOSS_BATCH, LOSS_SEQ, LOSS_LR, LOSS_FALL = 30, 8, 128, 3e-3, 0.5
+BWD_KERNEL_NAMES = ("stats_kernel", "dkdv_kernel", "dq_kernel")   # flash_attention_bwd.cu
+
+
+def grad_row_floor(want) -> float:
+    """GRAD_ROW_FLOOR times the RMS row norm of the gradients ``want``."""
+    sq = [g.float().norm(dim=-1).square() for g in want]
+    return float(GRAD_ROW_FLOOR * (sum(x.sum() for x in sq) / sum(x.numel() for x in sq)).sqrt())
+
+
+def grad_row_err(got: torch.Tensor, want: torch.Tensor, floor: float) -> float:
+    """The largest error of one gradient row over that row's norm in
+    ``want``, floored at ``floor``."""
+    diff = (got.float() - want.float()).norm(dim=-1)
+    return float((diff / want.float().norm(dim=-1).clamp_min(max(floor, 1e-30))).max())
+
+
+def dk_tile_fault(q, k, v, o, do, scale, window, want_dk, floor) -> float | None:
+    """grad_row_err of a planted fault: the first 64 keys' dk misses the
+    queries 64..127, what a kernel that skips one query tile of a key tile
+    would give.  None where the shape is too short."""
+    if q.shape[1] < 512:
+        return None
+    do_cut = do.clone()
+    do_cut[:, 64:128] = 0
+    _, dk_cut, _ = causal_attention_bwd_plain(q, k, v, o, do_cut, scale=scale, window=window)
+    fault = want_dk.clone()
+    fault[:, :64] = dk_cut[:, :64]
+    return grad_row_err(fault, want_dk, floor)
+
+
+def check_flash_bwd(shapes, dtypes) -> float:
+    """The backward kernel against causal_attention_bwd_plain on the same
+    q, k, v, forward output and output gradient: every dq, dk and dv row
+    within GRAD_ROW_TOL, all finite, and a planted one-tile fault in dk past
+    the limit on long shapes; returns the largest absolute error."""
+    worst = 0.0
+    for dtype in dtypes:
+        for i, shape in enumerate(shapes):
+            q, k, v = flash_operands(shape, dtype, seed=i)
+            do = torch.randn(q.shape, generator=torch.Generator().manual_seed(100 + i)).to(dtype).to(DEVICE)
+            scale, window = shape[4] ** -0.5, shape[5]
+            o = causal_attention(q, k, v, scale=scale, window=window)
+            got = causal_attention_bwd(q, k, v, o, do, scale=scale, window=window)
+            torch.cuda.synchronize()
+            want = causal_attention_bwd_plain(q, k, v, o, do, scale=scale, window=window)
+            floor = grad_row_floor(want)
+            errs = [grad_row_err(a, b, floor) for a, b in zip(got, want)]
+            abs_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+            finite = all(bool(torch.isfinite(a).all()) for a in got)
+            fault_err = dk_tile_fault(q, k, v, o, do, scale, window, want[1], floor)
+            tol = GRAD_ROW_TOL[dtype]
+            ok = finite and max(errs) <= tol
+            fault = "" if fault_err is None else f" one-tile fault in dk={fault_err:.3e}"
+            print(
+                f"  flash_attention_bwd {str(dtype)[6:]} (B,S,H,KV,hd,window)={shape}: row_rel_err "
+                f"dq={errs[0]:.3e} dk={errs[1]:.3e} dv={errs[2]:.3e} tol={tol} max_abs_err={abs_err:.3e} "
+                f"finite={finite}{fault} {'ok' if ok else 'MISMATCH'}"
+            )
+            if not ok:
+                raise AssertionError(f"flash_attention_bwd disagrees with its plain version at {shape} {dtype}")
+            if fault_err is not None and fault_err <= tol:
+                raise AssertionError(f"GRAD_ROW_TOL cannot see a one-tile fault at {shape} {dtype}: {fault_err:.3e}")
+            worst = max(worst, abs_err)
+    return worst
+
+
+@contextlib.contextmanager
+def recording_bwd_calls(calls: Counter):
+    """Count each (kernel, shape, dtype) the backward pass calls the
+    backward wrapper with (``_FlashAttention.backward`` looks it up in its
+    module at every call).  The wrapper is unchanged; while the recorder
+    stands in for it, the wrapper's own ``causal_attention_bwd.launches +=
+    1`` lands on the recorder, and is added to the wrapper's count on exit."""
+    wrapped = fa_mod.causal_attention_bwd
+
+    def rec(q, k, v, o, do, *, scale, window=0):
+        calls["flash_attention_bwd", (*q.shape[:3], k.shape[2], q.shape[3], window), q.dtype] += 1
+        return wrapped(q, k, v, o, do, scale=scale, window=window)
+
+    rec.launches = 0
+    fa_mod.causal_attention_bwd = rec
+    try:
+        yield
+    finally:
+        fa_mod.causal_attention_bwd = wrapped
+        wrapped.launches += rec.launches
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's attention through causal_attention_plain, which autograd
+    differentiates: the check's own reference, off the port's path."""
+    kernel = attention.causal_attention
+    attention.causal_attention = causal_attention_plain
+    try:
+        yield
+    finally:
+        attention.causal_attention = kernel
+
+
+def param_grads(cfg, params, batch) -> tuple[float, list[tuple[str, torch.Tensor]]]:
+    """forward_loss and the gradient of every parameter leaf (autograd.grad
+    raises if any leaf gets none)."""
+    flat = leaves_with_paths(params)
+    live = [p.detach().requires_grad_(True) for _, p in flat]
+    loss, _ = tf.forward_loss(cfg, tree_unflatten(params, live), batch)
+    grads = torch.autograd.grad(loss, live)
+    return float(loss.detach()), [(path, g) for (path, _), g in zip(flat, grads)]
+
+
+def phase_train_path(name: str, calls: Counter) -> dict:
+    """Microbatched float32 train steps of ``name`` at full width and depth
+    on SyntheticTokens; returns the path's launches and the step's
+    readings."""
+    cfg = TRAIN[name]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE, dtype=torch.float32)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR), n_microbatches=TRAIN_MICRO)
+    opt = adamw_init(params, tcfg.optimizer)
+    step = make_train_step(cfg, tcfg)
+    data = batches_for_arch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=DEVICE)
+    batches = [next(data) for _ in range(TRAIN_TIMED + 2)]
+    full = INPUT_SHAPES["train_4k"]
+    print(
+        f"{name}: {tf.count_params(cfg) / 1e9:.3f} B parameters in float32, {cfg.n_layers} layers (full depth), "
+        f"init {time.perf_counter() - t0:.2f} s; {TRAIN_MICRO} microbatches of {TRAIN_BATCH // TRAIN_MICRO} x "
+        f"{TRAIN_SEQ} a step (cut from {full.name}'s {full.global_batch} x {full.seq_len})"
+    )
+    micro = {k: a[: TRAIN_BATCH // TRAIN_MICRO] for k, a in batches[0].items()}
+    loss, grads = param_grads(cfg, params, micro)
+    bad = [path for path, g in grads if not (bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0))]
+    print(f"  gradient of forward_loss on one microbatch: loss {loss:.4f}, {len(grads)} leaves, "
+          f"{len(grads) - len(bad)} finite and non-zero")
+    if bad or not math.isfinite(loss):
+        raise AssertionError(f"{name}: leaves without a finite, non-zero gradient: {bad[:8]}")
+    del grads
+
+    for k in KERNELS:
+        k["wrapper"].launches = 0
+    step_ms = []
+    with recording_kernel_calls(calls), recording_bwd_calls(calls):
+        for i, batch in enumerate(batches[: TRAIN_TIMED + 1]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch, 1.0)
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            if i:
+                step_ms.append((time.perf_counter() - t) * 1e3)
+            print(f"  step {i}{' (warm)' if i == 0 else ''}: loss {loss:.4f} grad_norm {gnorm:.4f}")
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise AssertionError(f"{name}: non-finite loss or grad_norm at step {i}")
+    launches = launch_counts()
+    steps = TRAIN_TIMED + 1
+    want = {"block_matmul": 0, "flash_attention": 2 * cfg.n_layers * TRAIN_MICRO * steps,
+            "flash_attention_bwd": cfg.n_layers * TRAIN_MICRO * steps, "wkv6": 0}
+    print(f"  launches over {steps} steps: {launches} (want {want}: two forwards a layer and microbatch under remat)")
+    assert launches == want, (launches, want)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = float(np.median(step_ms))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    reading = device_breakdown("one train step", lambda: step(params, opt, batches[-1], 1.0))
+    bwd_share = None
+    if reading is not None:
+        busy, wall, kernels = reading
+        bwd = sum(t for t, _, key in kernels if any(n in key for n in BWD_KERNEL_NAMES))
+        fwd = sum(t for t, _, key in kernels if "flash_kernel" in key)
+        bwd_share = bwd / busy
+        print(f"    flash_attention_bwd kernels {bwd:.3f} ms ({bwd_share:.2%} of the step's device time); "
+              f"flash_attention forward {fwd:.3f} ms ({fwd / busy:.2%})")
+    print(
+        f"  warm: train step {med:.3f} ms (median of {TRAIN_TIMED}; {', '.join(f'{t:.3f}' for t in step_ms)}), "
+        f"{tokens / med * 1e3:.1f} tokens/s, peak memory {peak:.2f} GiB; {time.perf_counter() - t0:.2f} s"
+    )
+    del params, opt, batches
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": med, "tokens_per_s": tokens / med * 1e3, "peak_gib": peak,
+            "device_busy_share": None if reading is None else reading[0] / reading[1],
+            "bwd_share_of_device_time": bwd_share}
+
+
+def phase_train_check() -> None:
+    """Full width, TRAIN_CHECK_LAYERS layers, float32: the kernels' gradient
+    against the plain versions' for both models; 4 microbatches against 1;
+    the loss falls on SyntheticTokens."""
+    for name, base in TRAIN.items():
+        cfg = dataclasses.replace(base, n_layers=TRAIN_CHECK_LAYERS)
+        params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(3), device=DEVICE, dtype=torch.float32)
+        batch = next(batches_for_arch(cfg, 2, TRAIN_SEQ, seed=4, device=DEVICE))
+        for k in KERNELS:
+            k["wrapper"].launches = 0
+        loss, got = param_grads(cfg, params, batch)
+        kernel_launches = launch_counts()
+        with plain_attention():
+            plain_loss, want = param_grads(cfg, params, batch)
+        assert launch_counts() == kernel_launches, "the plain check launched a kernel"
+        assert kernel_launches["flash_attention_bwd"] == cfg.n_layers, kernel_launches
+        errs = {path: float((g - w).norm() / w.norm().clamp_min(1e-30)) for (path, g), (_, w) in zip(got, want)}
+        worst = max(errs, key=errs.get)
+        windows = sorted(set(tf.layer_window_values(cfg)))
+        print(f"  {name}, {cfg.n_layers} layers (windows {windows}), 2 x {TRAIN_SEQ}: loss {loss:.6f} vs plain "
+              f"{plain_loss:.6f}; gradient of {len(errs)} leaves, largest error over norm {errs[worst]:.3e} "
+              f"({worst}), tol {TRAIN_GRAD_TOL}")
+        if errs[worst] > TRAIN_GRAD_TOL or abs(loss - plain_loss) > TRAIN_GRAD_TOL * abs(plain_loss):
+            raise AssertionError(f"{name}: the kernels' gradient disagrees with the plain versions'")
+        del params, got, want
+
+    cfg = dataclasses.replace(TRAIN["qwen1.5-0.5b"], n_layers=TRAIN_CHECK_LAYERS)
+    params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(1), device=DEVICE, dtype=torch.float32)
+    batch = next(batches_for_arch(cfg, MICRO_CHECK_BATCH, MICRO_CHECK_SEQ, seed=5, device=DEVICE))
+    outs = {}
+    for n in (1, 4):
+        tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3), n_microbatches=n)
+        new, _, m = make_train_step(cfg, tcfg)(params, adamw_init(params, tcfg.optimizer), batch)
+        outs[n] = (leaves_with_paths(new), float(m["loss"]))
+    rel = abs(outs[4][1] - outs[1][1]) / abs(outs[1][1])
+    _, g_full = param_grads(cfg, params, batch)     # the 1-microbatch step's gradient
+    n_all = n_out = 0
+    unexplained, where = [], Counter()
+    for (path, a), (_, b), (_, g) in zip(outs[1][0], outs[4][0], g_full):
+        out = ~torch.isclose(a, b, rtol=2e-3, atol=2e-4)
+        n_all, n_out = n_all + a.numel(), n_out + int(out.sum())
+        if out.any():
+            where[path] = int(out.sum())
+            if bool((out & (g.abs() > MICRO_SIGN_TOL * g.square().mean().sqrt())).any()):
+                unexplained.append(path)
+    print(f"  qwen1.5-0.5b, {cfg.n_layers} layers, {MICRO_CHECK_BATCH} x {MICRO_CHECK_SEQ}: 4 microbatches vs 1: "
+          f"loss {outs[4][1]:.6f} vs {outs[1][1]:.6f} (rel {rel:.2e}, tol 1e-4); {n_out} of {n_all} parameters "
+          f"outside rtol 2e-3 / atol 2e-4 ({dict(where)}), each where |g| < {MICRO_SIGN_TOL} of its leaf's RMS "
+          f"(AdamW's first step is sign(g) there); leaves with other misses: {unexplained}")
+    if rel > 1e-4 or unexplained or n_out > MICRO_SIGN_SHARE * n_all:
+        raise AssertionError("4 microbatches disagree with 1")
+    del params, outs, g_full
+
+    params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE, dtype=torch.float32)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=LOSS_LR))
+    opt, step, losses = adamw_init(params, tcfg.optimizer), make_train_step(cfg, tcfg), []
+    for _, batch in zip(range(LOSS_STEPS), batches_for_arch(cfg, LOSS_BATCH, LOSS_SEQ, device=DEVICE)):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    print(f"  qwen1.5-0.5b, {cfg.n_layers} layers, {LOSS_STEPS} steps of {LOSS_BATCH} x {LOSS_SEQ} at lr {LOSS_LR}: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (must fall by {LOSS_FALL})")
+    if not losses[-1] < losses[0] - LOSS_FALL:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    del params, opt
+    torch.cuda.empty_cache()
+
+
+def bwd_bound(key, dtype) -> tuple[float, str]:
+    """Least time (ms) of the backward: q, k, v, out and its gradient read
+    and dq, dk, dv written once at the memory rate, or 2.5 times the
+    forward's operations (five products of its size over the unmasked
+    pairs) at the peak rate of the type, whichever is longer."""
+    b, s, h, kv, hd, window = key
+    size = torch.empty((), dtype=dtype).element_size()
+    t_bytes = (4 * b * s * h * hd + 4 * b * s * kv * hd) * size / HBM_BYTES_PER_S * 1e3
+    w = window if window > 0 else s
+    pairs = sum(min(i + 1, w) for i in range(s))
+    t_ops = 2.5 * 4.0 * hd * pairs * b * h / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_bwd_call(q, k, v, do, scale, window):
+    """The library yardstick: the backward of one
+    F.scaled_dot_product_attention call on the same inputs (heads-first,
+    enable_gqa; a boolean mask for windowed layers), through
+    torch.autograd.grad of a forward made once."""
+    qh, kh, vh = (a.transpose(1, 2).detach().requires_grad_(True) for a in (q, k, v))
+    if window > 0:
+        pos = torch.arange(q.shape[1], device=q.device)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
+        out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=scale, enable_gqa=True)
+    else:
+        out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=scale, enable_gqa=True)
+    doh = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
+
+
+def phase_train_times(calls: Counter) -> dict:
+    """Times of the backward kernel at each shape the train paths called it
+    with; the totals over one train step of each model (each shape times its
+    calls a step) are the kernels line's numbers."""
+    rows = [(key, dtype, n // (TRAIN_TIMED + 1)) for (kname, key, dtype), n in calls.items()
+            if kname == "flash_attention_bwd"]
+    tot, by_bytes = Counter(), 0.0
+    print("times of flash_attention_bwd (ms per call, CUDA events) at the train paths' shapes:")
+    for key, dtype, n in rows:
+        q, k, v = flash_operands(key, dtype, seed=0)
+        do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(dtype).to(DEVICE)
+        scale, window = key[4] ** -0.5, key[5]
+        o = causal_attention(q, k, v, scale=scale, window=window)
+        fn = lambda: causal_attention_bwd(q, k, v, o, do, scale=scale, window=window)  # noqa: E731
+        plain = lambda: causal_attention_bwd_plain(q, k, v, o, do, scale=scale, window=window)  # noqa: E731
+        lib = sdpa_bwd_call(q, k, v, do, scale, window)
+        bound_ms, bound_by = bwd_bound(key, dtype)
+        t = {
+            "ms": time_ms(fn, 10, warmup=2),
+            "graph_ms": time_graph_ms(fn, calls=5, replays=3),
+            "plain_ms": time_ms(plain, 3, warmup=1),
+            "library_ms": time_ms(lib, 10, warmup=2),
+            "bound_ms": bound_ms,
+        }
+        print(
+            f"  {str(dtype)[6:]} (B,S,H,KV,hd,window)={key}, {n} calls a step: kernel={t['ms']:.6f} "
+            f"graph={t['graph_ms']:.6f} plain={t['plain_ms']:.6f} sdpa_backward={t['library_ms']:.6f} "
+            f"bound={bound_ms:.6f} ({bound_by}) share={bound_ms / t['ms']:.4%} graph share={bound_ms / t['graph_ms']:.4%} "
+            f"kernel / sdpa_backward={t['ms'] / t['library_ms']:.3f}"
+        )
+        for key2, val in t.items():
+            tot[key2] += n * val
+        if bound_by == "bytes":
+            by_bytes += n * bound_ms
+    out = {"ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+           "bound_by": "bytes" if by_bytes >= tot["bound_ms"] / 2 else "operations",
+           "library_ms": tot["library_ms"], "graph_ms": tot["graph_ms"]}
+    print(f"  one train step of each model ({sum(n for _, _, n in rows)} calls): " + ", ".join(
+        f"{k2}={v2:.6f}" if isinstance(v2, float) else f"{k2}={v2}" for k2, v2 in out.items()))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1512,7 +1912,7 @@ def main() -> int:
     hgmma = phase("tensor cores: HGMMA in the flash_attention library", phase_tensor_cores, "flash_attention", "HGMMA",
                   {rf"tc12flash_kernelILi{hd}E": FLASH_TC_HGMMA[hd] for hd in TENSOR_CORE_HEAD_DIMS})
     hmma = phase("tensor cores: HMMA in the wkv6 library", phase_tensor_cores, "wkv6", "HMMA")
-    matmul_k, flash_k, wkv_k = KERNELS
+    matmul_k = KERNELS[0]
     checks = {"block_matmul": phase("kernel vs plain: block_matmul", phase_kernel_vs_plain, matmul_k)}
     phase("kernel vs plain: flash_attention, test and ragged shapes", check_flash,
           FLASH_TEST_SHAPES + FLASH_RAGGED_SHAPES, (torch.float32, torch.bfloat16))
@@ -1547,6 +1947,21 @@ def main() -> int:
         phase(f"model-zoo correctness: {name} float32", phase_zoo_check, name)
     scans = phase("model-zoo correctness: hymba's sequential scan against the chunked one", phase_ssm_scans)
 
+    phase("kernel vs plain: flash_attention_bwd, test and ragged shapes", check_flash_bwd,
+          FLASH_TEST_SHAPES + FLASH_RAGGED_SHAPES + BWD_GROUP8_SHAPES, (torch.float32, torch.bfloat16))
+    checks["flash_attention_bwd"] = {"max_abs_err": phase(
+        "kernel vs plain: flash_attention_bwd at the train path's shapes", check_flash_bwd,
+        TRAIN_BWD_SHAPES, (torch.float32,))}
+    train_calls = Counter()
+    train = {}
+    for name in TRAIN:
+        train[name] = phase(f"train path: {name}", phase_train_path, name, train_calls)
+        launches.update(train[name]["launches"])
+    print("train path kernel calls per step: " + "; ".join(
+        f"{k} {key} {str(dt)[6:]} x{n // (TRAIN_TIMED + 1)}" for (k, key, dt), n in train_calls.items()
+    ))
+    phase("train correctness: gradients, microbatches, loss", phase_train_check)
+
     # wkv6's route at each (type, head_dim) it ran at on the path and in the
     # float32 full-forward check.
     wkv_routes = {
@@ -1564,6 +1979,7 @@ def main() -> int:
     torch_ops["online"] = phase("torch ops: online control on the Fig. 8 trace", phase_online)
     times = {"block_matmul": phase("times: block_matmul", phase_times, matmul_k)}
     times.update(phase("times: flash_attention and wkv6", phase_zoo_times, calls))
+    times["flash_attention_bwd"] = phase("times: flash_attention_bwd", phase_train_times, train_calls)
 
     line = []
     for k in KERNELS:
@@ -1581,12 +1997,17 @@ def main() -> int:
             **({"sass_hgmma": matmul_hgmma, "routes": {"main path": path_routes, "kernel vs plain": checks[name]["routes"]}}
                if name == "block_matmul" else {}),
             **({"sass_hgmma": hgmma, "launches_by_path": {n: v["flash_attention"] for n, v in zoo_launches.items()
-                                                          if "flash_attention" in v},
+                                                          if "flash_attention" in v}
+                | {f"train {n}": v["launches"]["flash_attention"] for n, v in train.items()},
                 "routes": flash_routes} if name == "flash_attention" else {}),
             **({"sass_hmma": hmma, "routes": wkv_routes} if name == "wkv6" else {}),
+            **({"launches_by_path": {f"train {n}": v["launches"][name] for n, v in train.items()},
+                "shapes": sorted({str(key) for (k2, key, _dt) in train_calls if k2 == name})}
+               if name == "flash_attention_bwd" else {}),
         })
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"torch_ops": torch_ops, "ssm_scans": scans}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": line}))
     print(json.dumps({
         "ok": True,

@@ -17,6 +17,14 @@ panels, the others on 64-column, 128-byte ones); bfloat16 at 16 or 32 and
 every float32 shape run float32 FMAs on the CUDA cores (float32 on the
 tensor cores would be TF32).  The routing is fixed; neither kernel stands
 in for the other, and no input is padded to another head_dim.
+
+The gradient is a kernel too: ``causal_attention`` is the entry of the
+autograd function ``_FlashAttention`` whenever a gradient is asked for, and
+its backward launches the hand-written ``flash_attention_bwd`` kernels
+(``csrc/flash_attention_bwd.cu``, float32 FMAs on the CUDA cores for every
+type and head_dim), with ``causal_attention_bwd_plain`` as their plain
+version.  The JAX package differentiates ``attention_chunked`` with XLA
+instead; it has no backward kernel.
 """
 from __future__ import annotations
 
@@ -47,6 +55,18 @@ def _kernel():
     return fn
 
 
+@functools.cache
+def _bwd_kernel():
+    fn = build.load("flash_attention_bwd").flash_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def causal_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float, window: int = 0
 ) -> torch.Tensor:
@@ -58,11 +78,7 @@ def causal_attention_plain(
     k = k.repeat_interleave(rep, dim=2)
     v = v.repeat_interleave(rep, dim=2)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    pos = torch.arange(s_len, device=q.device)
-    mask = pos[None, :] <= pos[:, None]
-    if window > 0:
-        mask &= pos[:, None] - pos[None, :] < window
-    scores = scores.masked_fill(~mask, NEG_INF)
+    scores = scores.masked_fill(~_mask(s_len, window, q.device), NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
 
@@ -109,23 +125,56 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {q.device}")
 
 
-def causal_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float, window: int = 0
-) -> torch.Tensor:
-    """Causal GQA attention: q (B, S, H, hd), k and v (B, S, KV, hd) with KV
-    dividing H; ``window`` > 0 keeps the last ``window`` keys of each query.
-    Returns (B, S, H, hd) in q's dtype.
+def _mask(s_len: int, window: int, device) -> torch.Tensor:
+    """(S, S) boolean mask of the (query, key) pairs the kernels see."""
+    pos = torch.arange(s_len, device=device)
+    mask = pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[:, None] - pos[None, :] < window
+    return mask
 
-    On CUDA tensors (contiguous, float32 or bfloat16, hd in ``HEAD_DIMS``;
-    16-byte-aligned on the tensor-core route) this launches the kernel that
-    ``route`` names on the current stream and raises if it cannot; on CPU
-    tensors it computes ``causal_attention_plain``.
-    ``causal_attention.launches`` counts the launches of either kernel.
-    """
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return causal_attention_plain(q, k, v, scale=scale, window=window)
 
+def causal_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    scale: float,
+    window: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' function in plain PyTorch: (dq, dk, dv) of
+    ``causal_attention`` at q, k, v, given its output ``o`` and the output's
+    gradient ``do``, in float32 arithmetic and the inputs' dtypes.  Each
+    row's log-sum-exp over its visible keys gives ``p`` (0 on masked pairs),
+    ``delta = do . o`` gives ``ds = p (do v^T - delta)``; dk and dv are
+    summed over the query heads of each KV head."""
+    b, s_len, h, hd = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    mask = _mask(s_len, window, q.device)
+    scores = (torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale).masked_fill(~mask, NEG_INF)
+    lse = torch.logsumexp(scores, dim=-1, keepdim=True)
+    p = torch.exp(scores - lse).masked_fill(~mask, 0.0)
+    delta = (dof * of).sum(dim=-1).transpose(1, 2)[..., None]          # (B, H, S, 1)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+
+    def group_sum(a):
+        return a.reshape(b, s_len, kv, rep, hd).sum(dim=3)
+
+    return dq.to(q.dtype), group_sum(dk).to(k.dtype), group_sum(dv).to(v.dtype)
+
+
+def _check_kernel_shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """What both kernels take beyond ``_check``: non-empty, hd in
+    ``HEAD_DIMS``, B * H within the grid, contiguous."""
     b, s, h, hd = q.shape
     if s < 1 or b < 1:
         raise ValueError(f"empty attention input {tuple(q.shape)}")
@@ -135,6 +184,13 @@ def causal_attention(
         raise ValueError(f"attention input too large for the kernel: {tuple(q.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the flash_attention kernel takes contiguous q, k, v")
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, window: int) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return causal_attention_plain(q, k, v, scale=scale, window=window)
+    _check_kernel_shape(q, k, v)
+    b, s, h, hd = q.shape
     check_alignment(route(q.dtype, hd), q, k, v)
     kernel = _kernel()
     out = torch.empty_like(q)
@@ -149,6 +205,102 @@ def causal_attention(
         raise RuntimeError(f"flash_attention launch failed with CUDA error {err}")
     causal_attention.launches += 1
     return out
+
+
+def causal_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    scale: float,
+    window: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``causal_attention(q, k, v, scale=scale,
+    window=window)``, whose output was ``o``, for the output gradient
+    ``do``; each in its input's dtype.
+
+    On CUDA tensors (as the forward kernel takes them; o and do of q's
+    shape, dtype and device, contiguous) this launches the three
+    ``flash_attention_bwd`` kernels on the current stream and raises if it
+    cannot; on CPU tensors it computes ``causal_attention_bwd_plain``.
+    ``causal_attention_bwd.launches`` counts the calls that launched them.
+    """
+    _check(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(
+                f"{name} must match q ({tuple(q.shape)}, {q.dtype}, {q.device}), got "
+                f"{tuple(t.shape)}, {t.dtype}, {t.device}"
+            )
+    if q.device.type == "cpu":
+        return causal_attention_bwd_plain(q, k, v, o, do, scale=scale, window=window)
+    _check_kernel_shape(q, k, v)
+    if not (o.is_contiguous() and do.is_contiguous()):
+        raise ValueError("the flash_attention backward kernel takes contiguous o and do")
+    b, s, h, hd = q.shape
+    kernel = _bwd_kernel()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device)   # lse, delta
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = kernel(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+            b, s, h, k.shape[2], hd, scale, int(window), int(q.dtype == torch.bfloat16),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed with CUDA error {err}")
+    causal_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+causal_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``causal_attention`` with its gradient: the forward kernel, then the
+    backward kernels on the saved q, k, v and output (their plain versions
+    on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, window):
+        out = _forward(q, k, v, scale, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.scale, ctx.window = scale, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = causal_attention_bwd(
+            q, k, v, out, dout.contiguous(), scale=ctx.scale, window=ctx.window
+        )
+        return dq, dk, dv, None, None
+
+
+def causal_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float, window: int = 0
+) -> torch.Tensor:
+    """Causal GQA attention: q (B, S, H, hd), k and v (B, S, KV, hd) with KV
+    dividing H; ``window`` > 0 keeps the last ``window`` keys of each query.
+    Returns (B, S, H, hd) in q's dtype.
+
+    On CUDA tensors (contiguous, float32 or bfloat16, hd in ``HEAD_DIMS``;
+    16-byte-aligned on the tensor-core route) this launches the kernel that
+    ``route`` names on the current stream and raises if it cannot; on CPU
+    tensors it computes ``causal_attention_plain``.  When autograd records
+    (grad mode on and an input requiring grad) the call goes through
+    ``_FlashAttention``, whose backward is ``causal_attention_bwd``.
+    ``causal_attention.launches`` counts the launches of either forward
+    kernel.
+    """
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, scale, window)
+    return _forward(q, k, v, scale, window)
 
 
 causal_attention.launches = 0

@@ -101,13 +101,20 @@ def matmul(
     tensors (row-major contiguous operands of at least one element per
     dimension; 16-byte-aligned on the tensor-core route) this launches the
     kernel that ``route`` names on the current stream and raises if it
-    cannot; on CPU tensors it computes ``matmul_plain``.
+    cannot; on CPU tensors it computes ``matmul_plain``.  A CUDA call that
+    autograd would record (grad mode on and an operand requiring grad)
+    raises ``NotImplementedError``: the kernel has no backward yet.
     ``matmul.launches`` counts the launches of either kernel.
     """
     out_dtype = out_dtype or x.dtype
     _check(x, y, out_dtype)
     if x.device.type == "cpu":
         return matmul_plain(x, y, out_dtype)
+    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
+        raise NotImplementedError(
+            "the block_matmul kernel has no backward kernel yet: a gradient "
+            "through it cannot be computed on the card"
+        )
 
     m, k = x.shape
     n = y.shape[1]

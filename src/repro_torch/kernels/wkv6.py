@@ -131,12 +131,19 @@ def wkv6(
     bfloat16; u and state float32; hd in ``HEAD_DIMS``; r, k, v, w
     16-byte-aligned on the chunk route) this launches the kernel that
     ``route`` names on the current stream and raises if it cannot; on CPU
-    tensors it computes ``wkv6_plain``.  ``wkv6.launches`` counts the
-    launches of either kernel.
+    tensors it computes ``wkv6_plain``.  A CUDA call that autograd would
+    record (grad mode on and an input requiring grad) raises
+    ``NotImplementedError``: the kernel has no backward yet.
+    ``wkv6.launches`` counts the launches of either kernel.
     """
     _check(r, k, v, w, u, state)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, state)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (r, k, v, w, u, state) if a is not None):
+        raise NotImplementedError(
+            "the wkv6 kernel has no backward kernel yet: a gradient through it "
+            "cannot be computed on the card"
+        )
 
     b, t_len, h, hd = r.shape
     if min(b, t_len, h) < 1:

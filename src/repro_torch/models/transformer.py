@@ -8,13 +8,19 @@ attention and SSM heads (``models/ssm.py``), RWKV6, and the vision and
 audio frontends (``models/frontend.py``: phi-3-vision, musicgen).
 
 The reference scans stacked layer groups for training; the port keeps one
-parameter dict per layer and runs every path as a plain loop over layers
-(scan and remat are training concerns).  The reference's sharding
-constraints have no meaning on one card and are left out.
+parameter dict per layer and runs every path as a plain loop over layers.
+For training, ``backbone`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``) as the reference's ``jax.checkpoint`` of its
+layer group does, and ``forward_loss`` is the next-token cross-entropy.
+The reference's sharding constraints have no meaning on one card and are
+left out.
 
-* The full forward (``embed_inputs`` -> ``backbone`` -> ``unembed``) and
-  ``prefill_step`` run attention through the ``flash_attention`` kernel and
-  the RWKV time mix through the ``wkv6`` kernel.
+* The full forward (``embed_inputs`` -> ``backbone`` -> ``unembed``),
+  ``forward_loss`` and ``prefill_step`` run attention through the
+  ``flash_attention`` kernel and the RWKV time mix through the ``wkv6``
+  kernel.  A gradient of attention runs ``flash_attention``'s backward
+  kernel; ``wkv6`` has none yet, so on the card RWKV6 trains not at all
+  (its wrapper raises) and on the host through the plain recurrence.
 * ``decode_step`` keeps per-layer caches: full-attention layers a KV cache
   of ``max_len`` slots, sliding-window layers a ring buffer of ``window``
   slots, RWKV layers their O(1) recurrent state, hymba layers the SSM
@@ -26,8 +32,15 @@ constraints have no meaning on one card and are left out.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -202,16 +215,50 @@ def _transformer_layer(
     return h + y2, aux
 
 
+# Products whose outputs the "dots" policy keeps for the backward pass, as
+# jax.checkpoint_policies.dots_saveable keeps dot_general's.
+_DOT_OPS = frozenset({
+    torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default,
+})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def backbone(
-    cfg: ArchConfig, params: Params, h: torch.Tensor, positions: torch.Tensor | None = None
+    cfg: ArchConfig,
+    params: Params,
+    h: torch.Tensor,
+    positions: torch.Tensor | None = None,
+    *,
+    remat: bool = False,
+    remat_policy: str = "nothing",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run every layer over h (B, S, D); returns (hidden states, the MoE
-    layers' summed load-balance loss, a float32 scalar)."""
+    layers' summed load-balance loss, a float32 scalar).
+
+    With ``remat`` each layer keeps only its input for the backward pass
+    and runs again there (``torch.utils.checkpoint``, non-reentrant), as
+    the reference's ``jax.checkpoint`` does per layer group: with
+    ``remat_policy="nothing"`` it saves nothing else, with ``"dots"`` the
+    matrix products' outputs.  The forward's values are the same either
+    way.
+    """
+    if remat_policy not in ("nothing", "dots"):
+        raise ValueError(f"unknown remat_policy {remat_policy!r}")
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    kw = {}
+    if remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
     for p, window in zip(params["layers"], layer_window_values(cfg)):
-        h, a = _transformer_layer(cfg, p, h, window, positions)
+        if remat:
+            h, a = checkpoint(_transformer_layer, cfg, p, h, window, positions, use_reentrant=False, **kw)
+        else:
+            h, a = _transformer_layer(cfg, p, h, window, positions)
         if a is not None:
             aux = aux + a
     return h, aux
@@ -252,6 +299,37 @@ def embed_inputs(
 def unembed(cfg: ArchConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return h @ params["lm_head"]
+
+
+def forward_loss(
+    cfg: ArchConfig,
+    params: Params,
+    batch: dict[str, torch.Tensor],
+    *,
+    remat: bool = True,
+    remat_policy: str = "nothing",
+    aux_weight: float = 0.01,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Next-token cross-entropy of one microbatch plus ``aux_weight`` times
+    the MoE load-balance loss; returns (loss, {"ce", "aux"}), float32
+    scalars.  ``batch`` is ``embed_inputs``' batch with ``labels`` (B, S)
+    (the text positions for the vision frontend, whose patch positions get
+    label 0 and are masked out of the mean)."""
+    h, loss_mask = embed_inputs(cfg, params, batch)
+    h, aux = backbone(cfg, params, h, remat=remat, remat_policy=remat_policy)
+    logits = unembed(cfg, params, h).float()                # (B, S, V)
+    labels = batch["labels"].long()
+    if cfg.frontend == "vision":
+        labels = torch.cat([labels.new_zeros((labels.shape[0], cfg.n_patches)), labels], dim=1)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels[..., None])[..., 0]
+    if loss_mask is not None:
+        nll = nll * loss_mask
+        denom = loss_mask.sum().clamp_min(1.0)
+    else:
+        denom = nll.numel()
+    ce = nll.sum() / denom
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 # ==========================================================================

@@ -1,0 +1,90 @@
+"""Training step with gradient-accumulation microbatching.
+
+Port of the JAX package's ``training/train_loop.py``.  The global batch is
+split into ``n_microbatches`` slices run one after another; their gradients
+accumulate in the parameters' dtype and are divided by the count, and the
+loss is the mean over slices, as the reference's ``lax.scan`` computes
+them.  It is also what keeps a large batch's logits (batch x seq x vocab)
+from ever being held at once.
+
+The step takes no randomness: the model has no dropout, and the data and
+the initial parameters come from their own seeded generators.  Gradients
+come from ``torch.autograd.grad`` on detached copies of the parameter
+leaves that require grad, so the parameters handed in are never marked and
+stay usable by the serving paths.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.transformer import forward_loss
+from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
+from repro_torch.training.tree import leaves_with_paths, tree_unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: AdamWConfig = AdamWConfig()
+    n_microbatches: int = 1
+    remat: bool = True
+    remat_policy: str = "nothing"   # nothing | dots (save the products' outputs)
+    aux_weight: float = 0.01
+
+
+def _split_micro(batch: dict[str, torch.Tensor], n: int) -> list[dict[str, torch.Tensor]]:
+    """The batch as ``n`` consecutive slices along its leading axis, as the
+    reference's reshape to (n, B / n, ...) cuts it."""
+    sizes = {a.shape[0] for a in batch.values()}
+    if len(sizes) != 1 or next(iter(sizes)) % n:
+        raise ValueError(f"a batch of leading sizes {sorted(sizes)} does not split into {n} microbatches")
+    m = next(iter(sizes)) // n
+    return [{k: a[i * m:(i + 1) * m] for k, a in batch.items()} for i in range(n)]
+
+
+def make_train_step(
+    cfg: ArchConfig, tcfg: TrainConfig
+) -> Callable[..., tuple[Any, Any, dict[str, torch.Tensor]]]:
+    """Returns ``train_step(params, opt_state, batch, lr_scale=1.0)`` ->
+    (new params, new optimizer state, {"loss", "grad_norm"})."""
+
+    def grad_fn(params, mb):
+        flat = [p for _, p in leaves_with_paths(params)]
+        live = [p.detach().requires_grad_(True) for p in flat]
+        with torch.enable_grad():
+            loss, _ = forward_loss(
+                cfg, tree_unflatten(params, live), mb, remat=tcfg.remat,
+                remat_policy=tcfg.remat_policy, aux_weight=tcfg.aux_weight,
+            )
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
+        # A leaf the loss does not reach (the audio frontend never reads
+        # ``embed``) gets a zero gradient, as jax.grad gives it.
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, flat)]
+        return loss.detach(), grads
+
+    def train_step(params, opt_state, batch, lr_scale=1.0):
+        n = tcfg.n_microbatches
+        if n > 1:
+            g_acc, losses = None, []
+            for mb in _split_micro(batch, n):
+                loss, grads = grad_fn(params, mb)
+                g_acc = grads if g_acc is None else [a + g for a, g in zip(g_acc, grads)]
+                losses.append(loss)
+            grads = [g / n for g in g_acc]
+            loss = sum(losses) / n
+        else:
+            loss, grads = grad_fn(params, batch)
+        gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        new_params, new_opt = adamw_update(
+            tree_unflatten(params, grads), opt_state, params, tcfg.optimizer, lr_scale
+        )
+        return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
+
+
+def init_train_state(cfg: ArchConfig, tcfg: TrainConfig, params: Any) -> dict[str, Any]:
+    return adamw_init(params, tcfg.optimizer)

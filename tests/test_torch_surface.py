@@ -1,7 +1,7 @@
 """The port's package surface against the reference's.
 
-Each of ``repro_torch.core``, ``.serving`` and ``.hw`` re-exports the
-reference package's public names, less the ones whose modules are not
+Each of ``repro_torch.core``, ``.serving``, ``.hw``, ``.training`` and
+``.data`` re-exports the reference package's public names, less the ones whose modules are not
 ported yet (listed here, so that a slice that ports one must take its names
 off the list).
 """
@@ -17,6 +17,8 @@ NOT_YET_PORTED = {
     "core": (),
     "serving": (),
     "hw": ("TPU_V5E", "TPU_V5E_SERVING_PLATFORM", "TPUChipSpec"),
+    "training": (),
+    "data": (),
 }
 
 
@@ -43,7 +45,8 @@ def test_every_listed_name_imports(package):
 def test_reference_idiom_imports_without_jax():
     """``from repro_torch.core import Plan``, the CNN module (which imports
     ``serving.engine``), the simulators, the device stepper and evaluator,
-    the controller and the fleet layers import in a fresh interpreter, with
+    the controller and the fleet layers, the training package, the data
+    pipeline and the train launcher import in a fresh interpreter, with
     neither JAX nor the reference package loaded."""
     code = (
         "import sys\n"
@@ -54,6 +57,9 @@ def test_reference_idiom_imports_without_jax():
         "import repro_torch.serving.des, repro_torch.serving.torch_stepper\n"
         "import repro_torch.serving.controller, repro_torch.serving.fleet\n"
         "import repro_torch.core.torch_eval, repro_torch.core.fleet\n"
+        "from repro_torch.training import make_train_step, AdamWConfig\n"
+        "from repro_torch.data import batches_for_arch\n"
+        "import repro_torch.launch.train, repro_torch.training.checkpoint\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
     )

@@ -14,7 +14,10 @@ and prints no result line):
    instructions in the SASS of the block_matmul and flash_attention
    libraries (``HGMMA``) and of the wkv6 library (``HMMA``), none of which
    may be 0; each tensor-core flash_attention instantiation must have
-   exactly its count (``FLASH_TC_HGMMA``);
+   exactly its count (``FLASH_TC_HGMMA``); every instantiation of the
+   backward's product kernels (stats, dK/dV, dQ) must have ``HMMA`` and
+   every dQ one ``DMMA``; the backward's kernels must not spill, and each
+   one's shared memory at every head_dim and type must fit 227 KB;
 3. kernel vs plain: each kernel's wrapper on the card at the reference's
    test shapes and ragged ones (``block_matmul`` also at the serving path's
    shapes and, in bfloat16, at ragged tensor-core tiles and 4096^3), held
@@ -51,7 +54,10 @@ and prints no result line):
    on the card: the shapes of phase 3 plus GQA 8, float32 and bfloat16, and
    the train paths' float32 shapes (qwen1.5-0.5b (2, 2048, 16, 16, 64);
    gemma3-1b (2, 2048, 4, 1, 256), window 512 and global); every dq, dk, dv
-   row within ``GRAD_ROW_TOL``, and a planted one-tile fault in dk past it;
+   row within ``GRAD_ROW_TOL``, a second call bitwise equal to the first,
+   and a planted one-tile fault in dk past the limit; at the train shapes
+   also the kernel's and the float32 plain version's row errors against
+   the plain version in float64;
 7b. train path: ``make_train_step`` of qwen1.5-0.5b and gemma3-1b at full
    width and depth, float32, 4 microbatches of 2 x 2048 (cut from
    ``train_4k``), one warm and 3 timed steps on ``SyntheticTokens``, one
@@ -84,7 +90,10 @@ and prints no result line):
     version and the one PyTorch call that computes the same function (where
     there is one; for the backward kernel, ``torch.autograd.grad`` through
     ``F.scaled_dot_product_attention``), beside the card's bound, launched
-    eagerly and replayed from a CUDA graph (device time alone).
+    eagerly and replayed from a CUDA graph (device time alone); the
+    backward's bound at the float32 rate and at the split-TF32 rate
+    (495 / 3 TFLOP/s), and the float32 forward kernel at the train shapes
+    beside its plain version, SDPA's float32 forward and its bound.
 
 Phases 8-12 run torch ops, not hand kernels (the reference jits them; none
 reaches a Pallas kernel): their times, launches per call and bounds go on
@@ -96,6 +105,7 @@ with one entry per kernel; the last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import importlib.util
 import json
@@ -172,6 +182,10 @@ DEVICE = torch.device("cuda")
 # as TF32 is disabled; bfloat16 on the tensor cores).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# float32 at full accuracy on the tensor cores: TF32's 495 TFLOP/s over the
+# three products of a split operand (flash_attention_bwd's own rate).
+SPLIT_TF32_OPS_PER_S = 495e12 / 3
+SMEM_PER_BLOCK = 232448   # bytes of shared memory one block may use (227 KB)
 
 # Every kernel of the port: its wrapper (which counts launches), plain
 # version, source, and the TPU kernel of the JAX package it replaces.
@@ -271,12 +285,14 @@ def find_cuobjdump() -> str | None:
     return None
 
 
-def phase_tensor_cores(name: str, opcode: str, expected: dict[str, int] | None = None) -> int:
+def phase_tensor_cores(name: str, opcode: str, expected: dict[str, int] | None = None,
+                       every: dict[str, int] | None = None) -> int:
     """Count the tensor-core instructions (``opcode``: HGMMA for Hopper's
     wgmma, HMMA for mma.sync) in each kernel of library ``name``'s SASS;
     fails when there are none, when the kernels whose mangled names match a
     pattern of ``expected`` are not exactly one with that pattern's count,
-    or when no ``cuobjdump`` is found."""
+    when the kernels matching a pattern of ``every`` are not that many or
+    one of them has none, or when no ``cuobjdump`` is found."""
     tool = find_cuobjdump()
     if tool is None:
         raise RuntimeError("cuobjdump is not available: the tensor-core route cannot be shown")
@@ -300,7 +316,56 @@ def phase_tensor_cores(name: str, opcode: str, expected: dict[str, int] | None =
         found = [n for fn_name, n in counts.items() if re.search(pattern, fn_name)]
         if found != [want]:
             raise AssertionError(f"{name} kernels matching {pattern!r} have {found} {opcode}, expected [{want}]")
+    for pattern, n_kernels in (every or {}).items():
+        found = [n for fn_name, n in counts.items() if re.search(pattern, fn_name)]
+        if len(found) != n_kernels or min(found, default=0) == 0:
+            raise AssertionError(f"{name} kernels matching {pattern!r} have {found} {opcode}, "
+                                 f"expected {n_kernels} kernels with some each")
     return total
+
+
+def ptxas_resources(name: str) -> dict[str, tuple[int, int]]:
+    """Registers and spill bytes (stores + loads) of each kernel of library
+    ``name``, from the ``-Xptxas -v`` report kept beside it."""
+    path = build.library_path(name)
+    out, fn = {}, None
+    for line in path.with_name(path.name + ".log").read_text().splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            fn = entry.group(1)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if fn and spill:
+            out[fn] = (out.get(fn, (0, 0))[0], int(spill.group(1)) + int(spill.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if fn and regs:
+            out[fn] = (int(regs.group(1)), out.get(fn, (0, 0))[1])
+    return out
+
+
+def phase_bwd_resources() -> dict:
+    """The backward library's kernels: registers and spills from ptxas (no
+    spills anywhere) and each kernel's dynamic shared memory at every
+    head_dim and type, from the library itself (within the 227 KB a block
+    may take)."""
+    res = ptxas_resources("flash_attention_bwd")
+    print("flash_attention_bwd: registers / spill bytes per kernel (ptxas)")
+    for fn_name, (regs, spill) in sorted(res.items()):
+        print(f"  {regs:4d} / {spill:4d}  {fn_name}")
+    spilled = [fn_name for fn_name, (_, spill) in res.items() if spill]
+    if len(res) != 4 * 2 * len(fa_mod.HEAD_DIMS) or spilled:
+        raise AssertionError(f"flash_attention_bwd: {len(res)} kernels in the ptxas report, spills in {spilled}")
+    fn = build.load("flash_attention_bwd").flash_attention_bwd_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    smem = {f"{dt} hd {hd}": [fn(hd, int(dt == "bfloat16"), kern) for kern in range(3)]
+            for dt in ("float32", "bfloat16") for hd in fa_mod.HEAD_DIMS}
+    print("  dynamic shared memory (bytes: stats, dK/dV, dQ): " + "; ".join(f"{k} {v}" for k, v in smem.items()))
+    if max(max(v) for v in smem.values()) > SMEM_PER_BLOCK or min(min(v) for v in smem.values()) <= 0:
+        raise AssertionError(f"flash_attention_bwd's shared memory outside (0, {SMEM_PER_BLOCK}]: {smem}")
+    short = {}
+    for mangled, (regs, _) in res.items():
+        m = re.search(rf"({'|'.join(BWD_KERNEL_NAMES[::-1])})I(f|13__nv_bfloat16)Li(\d+)E", mangled)
+        short[f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bfloat16'},{m.group(3)}>" if m else mangled] = regs
+    return {"registers": short, "smem_bytes": smem}
 
 
 def phase_kernel_vs_plain(kernel: dict) -> dict:
@@ -1157,7 +1222,8 @@ MICRO_CHECK_BATCH, MICRO_CHECK_SEQ = 8, 512
 # orders differ by about 1e-6 of it), and at most MICRO_SIGN_SHARE of all.
 MICRO_SIGN_TOL, MICRO_SIGN_SHARE = 1e-4, 1e-5
 LOSS_STEPS, LOSS_BATCH, LOSS_SEQ, LOSS_LR, LOSS_FALL = 30, 8, 128, 3e-3, 0.5
-BWD_KERNEL_NAMES = ("stats_kernel", "dkdv_kernel", "dq_kernel")   # flash_attention_bwd.cu
+BWD_PRODUCT_KERNELS = ("stats_kernel", "dkdv_kernel", "dq_kernel")   # flash_attention_bwd.cu
+BWD_KERNEL_NAMES = BWD_PRODUCT_KERNELS + ("dkdv_reduce_kernel",)
 
 
 def grad_row_floor(want) -> float:
@@ -1187,11 +1253,14 @@ def dk_tile_fault(q, k, v, o, do, scale, window, want_dk, floor) -> float | None
     return grad_row_err(fault, want_dk, floor)
 
 
-def check_flash_bwd(shapes, dtypes) -> float:
+def check_flash_bwd(shapes, dtypes, against_f64: bool = False) -> float:
     """The backward kernel against causal_attention_bwd_plain on the same
     q, k, v, forward output and output gradient: every dq, dk and dv row
-    within GRAD_ROW_TOL, all finite, and a planted one-tile fault in dk past
-    the limit on long shapes; returns the largest absolute error."""
+    within GRAD_ROW_TOL, all finite, a second call bitwise equal to the
+    first, and a planted one-tile fault in dk past the limit on long
+    shapes; returns the largest absolute error.  With ``against_f64``, also
+    prints the kernel's and the plain version's row errors against the
+    plain version in float64 (a reading, not a check)."""
     worst = 0.0
     for dtype in dtypes:
         for i, shape in enumerate(shapes):
@@ -1200,7 +1269,9 @@ def check_flash_bwd(shapes, dtypes) -> float:
             scale, window = shape[4] ** -0.5, shape[5]
             o = causal_attention(q, k, v, scale=scale, window=window)
             got = causal_attention_bwd(q, k, v, o, do, scale=scale, window=window)
+            again = causal_attention_bwd(q, k, v, o, do, scale=scale, window=window)
             torch.cuda.synchronize()
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
             want = causal_attention_bwd_plain(q, k, v, o, do, scale=scale, window=window)
             floor = grad_row_floor(want)
             errs = [grad_row_err(a, b, floor) for a, b in zip(got, want)]
@@ -1208,18 +1279,27 @@ def check_flash_bwd(shapes, dtypes) -> float:
             finite = all(bool(torch.isfinite(a).all()) for a in got)
             fault_err = dk_tile_fault(q, k, v, o, do, scale, window, want[1], floor)
             tol = GRAD_ROW_TOL[dtype]
-            ok = finite and max(errs) <= tol
+            ok = finite and bitwise and max(errs) <= tol
             fault = "" if fault_err is None else f" one-tile fault in dk={fault_err:.3e}"
             print(
                 f"  flash_attention_bwd {str(dtype)[6:]} (B,S,H,KV,hd,window)={shape}: row_rel_err "
                 f"dq={errs[0]:.3e} dk={errs[1]:.3e} dv={errs[2]:.3e} tol={tol} max_abs_err={abs_err:.3e} "
-                f"finite={finite}{fault} {'ok' if ok else 'MISMATCH'}"
+                f"finite={finite} bitwise_repeat={bitwise}{fault} {'ok' if ok else 'MISMATCH'}"
             )
             if not ok:
                 raise AssertionError(f"flash_attention_bwd disagrees with its plain version at {shape} {dtype}")
             if fault_err is not None and fault_err <= tol:
                 raise AssertionError(f"GRAD_ROW_TOL cannot see a one-tile fault at {shape} {dtype}: {fault_err:.3e}")
+            if against_f64:
+                exact = causal_attention_bwd_plain(*(a.double() for a in (q, k, v, o, do)), scale=scale, window=window)
+                floor64 = grad_row_floor(exact)
+                kern = [grad_row_err(a, b, floor64) for a, b in zip(got, exact)]
+                plain = [grad_row_err(a, b, floor64) for a, b in zip(want, exact)]
+                print(f"    against float64: kernel dq={kern[0]:.3e} dk={kern[1]:.3e} dv={kern[2]:.3e}; "
+                      f"float32 plain dq={plain[0]:.3e} dk={plain[1]:.3e} dv={plain[2]:.3e}")
+                del exact
             worst = max(worst, abs_err)
+            del got, again, want
     return worst
 
 
@@ -1405,17 +1485,18 @@ def phase_train_check() -> None:
     torch.cuda.empty_cache()
 
 
-def bwd_bound(key, dtype) -> tuple[float, str]:
+def bwd_bound(key, dtype, ops_per_s=None) -> tuple[float, str]:
     """Least time (ms) of the backward: q, k, v, out and its gradient read
     and dq, dk, dv written once at the memory rate, or 2.5 times the
     forward's operations (five products of its size over the unmasked
-    pairs) at the peak rate of the type, whichever is longer."""
+    pairs) at ``ops_per_s`` (by default the peak rate of the type),
+    whichever is longer."""
     b, s, h, kv, hd, window = key
     size = torch.empty((), dtype=dtype).element_size()
     t_bytes = (4 * b * s * h * hd + 4 * b * s * kv * hd) * size / HBM_BYTES_PER_S * 1e3
     w = window if window > 0 else s
     pairs = sum(min(i + 1, w) for i in range(s))
-    t_ops = 2.5 * 4.0 * hd * pairs * b * h / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = 2.5 * 4.0 * hd * pairs * b * h / (ops_per_s or PEAK_OPS_PER_S[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1435,13 +1516,16 @@ def sdpa_bwd_call(q, k, v, do, scale, window):
     return lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
 
 
-def phase_train_times(calls: Counter) -> dict:
+def phase_train_times(calls: Counter) -> tuple[dict, list[dict]]:
     """Times of the backward kernel at each shape the train paths called it
-    with; the totals over one train step of each model (each shape times its
-    calls a step) are the kernels line's numbers."""
+    with, its bound at the float32 rate and at the split-TF32 rate; the
+    totals over one train step of each model (each shape times its calls a
+    step) are the kernels line's numbers.  Also the float32 forward kernel
+    at the same shapes beside its plain version, SDPA's float32 forward and
+    its bound, returned per shape."""
     rows = [(key, dtype, n // (TRAIN_TIMED + 1)) for (kname, key, dtype), n in calls.items()
             if kname == "flash_attention_bwd"]
-    tot, by_bytes = Counter(), 0.0
+    tot, by_bytes, forward = Counter(), 0.0, []
     print("times of flash_attention_bwd (ms per call, CUDA events) at the train paths' shapes:")
     for key, dtype, n in rows:
         q, k, v = flash_operands(key, dtype, seed=0)
@@ -1458,23 +1542,44 @@ def phase_train_times(calls: Counter) -> dict:
             "plain_ms": time_ms(plain, 3, warmup=1),
             "library_ms": time_ms(lib, 10, warmup=2),
             "bound_ms": bound_ms,
+            "bound_split_tf32_ms": bwd_bound(key, dtype, SPLIT_TF32_OPS_PER_S)[0],
         }
         print(
             f"  {str(dtype)[6:]} (B,S,H,KV,hd,window)={key}, {n} calls a step: kernel={t['ms']:.6f} "
             f"graph={t['graph_ms']:.6f} plain={t['plain_ms']:.6f} sdpa_backward={t['library_ms']:.6f} "
-            f"bound={bound_ms:.6f} ({bound_by}) share={bound_ms / t['ms']:.4%} graph share={bound_ms / t['graph_ms']:.4%} "
-            f"kernel / sdpa_backward={t['ms'] / t['library_ms']:.3f}"
+            f"bound={bound_ms:.6f} ({bound_by}, f32 FMA) share={bound_ms / t['ms']:.4%} graph share="
+            f"{bound_ms / t['graph_ms']:.4%}; split-TF32 bound={t['bound_split_tf32_ms']:.6f} graph share="
+            f"{t['bound_split_tf32_ms'] / t['graph_ms']:.4%}; kernel / sdpa_backward={t['ms'] / t['library_ms']:.3f} "
+            f"graph / plain={t['graph_ms'] / t['plain_ms']:.3f}"
         )
         for key2, val in t.items():
             tot[key2] += n * val
         if bound_by == "bytes":
             by_bytes += n * bound_ms
+        fwd = lambda: causal_attention(q, k, v, scale=scale, window=window)  # noqa: E731
+        fwd_bound, fwd_by = flash_bound(key, dtype)
+        f = {
+            "shape": list(key), "dtype": str(dtype)[6:], "calls_a_step": 2 * n,
+            "ms": time_ms(fwd, 10, warmup=2), "graph_ms": time_graph_ms(fwd, calls=5, replays=3),
+            "plain_ms": time_ms(lambda: causal_attention_plain(q, k, v, scale=scale, window=window), 3, warmup=1),
+            "library_ms": time_ms(sdpa_call(q, k, v, scale, window), 10, warmup=2),
+            "bound_ms": fwd_bound, "bound_by": fwd_by,
+        }
+        print(
+            f"    forward at that shape ({2 * n} calls a step under remat): kernel={f['ms']:.6f} "
+            f"graph={f['graph_ms']:.6f} plain={f['plain_ms']:.6f} sdpa={f['library_ms']:.6f} "
+            f"bound={fwd_bound:.6f} ({fwd_by}) graph share={fwd_bound / f['graph_ms']:.4%} "
+            f"kernel / sdpa={f['ms'] / f['library_ms']:.3f}"
+        )
+        forward.append(f)
+        del q, k, v, o, do
     out = {"ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
            "bound_by": "bytes" if by_bytes >= tot["bound_ms"] / 2 else "operations",
-           "library_ms": tot["library_ms"], "graph_ms": tot["graph_ms"]}
+           "library_ms": tot["library_ms"], "graph_ms": tot["graph_ms"],
+           "bound_split_tf32_ms": tot["bound_split_tf32_ms"]}
     print(f"  one train step of each model ({sum(n for _, _, n in rows)} calls): " + ", ".join(
         f"{k2}={v2:.6f}" if isinstance(v2, float) else f"{k2}={v2}" for k2, v2 in out.items()))
-    return out
+    return out, forward
 
 
 # --------------------------------------------------------------------------
@@ -1912,6 +2017,15 @@ def main() -> int:
     hgmma = phase("tensor cores: HGMMA in the flash_attention library", phase_tensor_cores, "flash_attention", "HGMMA",
                   {rf"tc12flash_kernelILi{hd}E": FLASH_TC_HGMMA[hd] for hd in TENSOR_CORE_HEAD_DIMS})
     hmma = phase("tensor cores: HMMA in the wkv6 library", phase_tensor_cores, "wkv6", "HMMA")
+    # Every instantiation (2 types x 6 head_dims) of the backward's product
+    # kernels runs mma.sync; the reduction kernel has no product.
+    bwd_hmma = phase("tensor cores: HMMA in the flash_attention_bwd library", phase_tensor_cores,
+                     "flash_attention_bwd", "HMMA", None,
+                     {rf"{len(n)}{n}I": 2 * len(fa_mod.HEAD_DIMS) for n in BWD_PRODUCT_KERNELS})
+    # dQ's do v^T runs on the FP64 tensor cores (mma.m8n8k4.f64).
+    bwd_dmma = phase("tensor cores: DMMA in the flash_attention_bwd library", phase_tensor_cores,
+                     "flash_attention_bwd", "DMMA", None, {r"9dq_kernelI": 2 * len(fa_mod.HEAD_DIMS)})
+    bwd_resources = phase("flash_attention_bwd: registers, spills, shared memory", phase_bwd_resources)
     matmul_k = KERNELS[0]
     checks = {"block_matmul": phase("kernel vs plain: block_matmul", phase_kernel_vs_plain, matmul_k)}
     phase("kernel vs plain: flash_attention, test and ragged shapes", check_flash,
@@ -1951,7 +2065,7 @@ def main() -> int:
           FLASH_TEST_SHAPES + FLASH_RAGGED_SHAPES + BWD_GROUP8_SHAPES, (torch.float32, torch.bfloat16))
     checks["flash_attention_bwd"] = {"max_abs_err": phase(
         "kernel vs plain: flash_attention_bwd at the train path's shapes", check_flash_bwd,
-        TRAIN_BWD_SHAPES, (torch.float32,))}
+        TRAIN_BWD_SHAPES, (torch.float32,), True)}
     train_calls = Counter()
     train = {}
     for name in TRAIN:
@@ -1979,7 +2093,7 @@ def main() -> int:
     torch_ops["online"] = phase("torch ops: online control on the Fig. 8 trace", phase_online)
     times = {"block_matmul": phase("times: block_matmul", phase_times, matmul_k)}
     times.update(phase("times: flash_attention and wkv6", phase_zoo_times, calls))
-    times["flash_attention_bwd"] = phase("times: flash_attention_bwd", phase_train_times, train_calls)
+    times["flash_attention_bwd"], train_forward = phase("times: flash_attention_bwd", phase_train_times, train_calls)
 
     line = []
     for k in KERNELS:
@@ -1999,10 +2113,11 @@ def main() -> int:
             **({"sass_hgmma": hgmma, "launches_by_path": {n: v["flash_attention"] for n, v in zoo_launches.items()
                                                           if "flash_attention" in v}
                 | {f"train {n}": v["launches"]["flash_attention"] for n, v in train.items()},
-                "routes": flash_routes} if name == "flash_attention" else {}),
+                "routes": flash_routes, "train_forward_f32": train_forward} if name == "flash_attention" else {}),
             **({"sass_hmma": hmma, "routes": wkv_routes} if name == "wkv6" else {}),
             **({"launches_by_path": {f"train {n}": v["launches"][name] for n, v in train.items()},
-                "shapes": sorted({str(key) for (k2, key, _dt) in train_calls if k2 == name})}
+                "shapes": sorted({str(key) for (k2, key, _dt) in train_calls if k2 == name}),
+                "sass_hmma": bwd_hmma, "sass_dmma": bwd_dmma, "registers": bwd_resources["registers"]}
                if name == "flash_attention_bwd" else {}),
         })
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.2f} s")

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/repro_torch/`` at the root of
 the checkout, at first use, and loaded with ``ctypes``.  The library's file
-name carries a hash of its source, so an edited source is rebuilt and a
-built one is reused.  Nothing here runs when the module is imported.
+name carries a hash of its source and of the headers beside it
+(``csrc/*.cuh``), so an edited source or header is rebuilt and a built one
+is reused.  Nothing here runs when the module is imported.
 """
 from __future__ import annotations
 
@@ -46,7 +47,10 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()).hexdigest()
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest = digest.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

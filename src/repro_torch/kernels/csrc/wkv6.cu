@@ -115,6 +115,8 @@
 #include <cstdint>
 #include <initializer_list>
 
+#include "tf32.cuh"
+
 namespace {
 
 constexpr int G = 4;      // row groups per state column
@@ -282,44 +284,15 @@ struct Smem {
   static constexpr size_t BYTES = GF + NSUB * NG * HD * 4;
 };
 
-// x split into a high and a low TF32 operand: hi keeps x's sign, exponent
-// and top 10 mantissa bits, lo = x - hi exactly; the tensor core keeps 10
-// mantissa bits of lo, so hi + lo carries 21 of x's 24 bits.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xFFFFE000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// c += a * b, m16n8k8, TF32 operands, float32 accumulators.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a * b with both operands split: hi*hi into c, the corrections
-// lo*hi + hi*lo into cc (two accumulators halve the chain of dependent mmas).
-__device__ __forceinline__ void mma3(float (&c)[4], float (&cc)[4], const float (&a)[4], float b0,
-                                     float b1) {
-  uint32_t ah[4], al[4], bh0, bl0, bh1, bl1;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) split(a[q], ah[q], al[q]);
-  split(b0, bh0, bl0);
-  split(b1, bh1, bl1);
-  mma(cc, al, bh0, bh1);
-  mma(cc, ah, bl0, bl1);
-  mma(c, ah, bh0, bh1);
-}
-
-// c += a * b where b holds bfloat16 values (exact in TF32): hi*b into c,
-// lo*b into cc.
-__device__ __forceinline__ void mma2(float (&c)[4], float (&cc)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], float b0, float b1) {
-  mma(cc, al, __float_as_uint(b0), __float_as_uint(b1));
-  mma(c, ah, __float_as_uint(b0), __float_as_uint(b1));
-}
+// The split-TF32 products and cp.async copies, shared with
+// flash_attention_bwd.cu (tf32.cuh).
+using tf32::cp_async16;
+using tf32::cp_async_commit;
+using tf32::cp_async_wait_all;
+using tf32::mma;
+using tf32::mma2;
+using tf32::mma3;
+using tf32::split;
 
 // Two consecutive values from shared memory as float32.
 __device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
@@ -355,17 +328,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Copies the CL rows of one chunk, starting at `src` (rows `stride`

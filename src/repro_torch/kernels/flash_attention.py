@@ -21,16 +21,19 @@ in for the other, and no input is padded to another head_dim.
 The gradient is a kernel too: ``causal_attention`` is the entry of the
 autograd function ``_FlashAttention`` whenever a gradient is asked for, and
 its backward launches the hand-written ``flash_attention_bwd`` kernels
-(``csrc/flash_attention_bwd.cu``, float32 FMAs on the CUDA cores for every
-type and head_dim), with ``causal_attention_bwd_plain`` as their plain
-version.  The JAX package differentiates ``attention_chunked`` with XLA
-instead; it has no backward kernel.
+(``csrc/flash_attention_bwd.cu``: TF32 ``mma.sync`` products with every
+inexact operand split into a high and a low part, for every type and
+head_dim), with ``causal_attention_bwd_plain`` as their plain version.
+Their dK/dV kernel walks a work list that ``dkdv_work`` builds in plain
+Python, once per shape.  The JAX package differentiates
+``attention_chunked`` with XLA instead; it has no backward kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -40,6 +43,108 @@ _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)   # the kernels' instantiations
 TENSOR_CORE_HEAD_DIMS = (64, 96, 128, 256)   # bfloat16 ones on the tensor cores
 _MAX_GRID_Y = 65535                  # B * H blocks on the CUDA-core kernel's gridDim.y
+
+# The backward's dK/dV work list (``dkdv_work``): one row per item, these
+# columns, int32.  An item is the (query tile x query head) steps
+# [qtile0, qtile1) x [head0, head1) (heads within the KV head's group) of
+# key tile ``key_tile`` of KV head row ``bkv`` = b * KV + kv head; ``slot``
+# is -1 where the item is its key tile's only one (the kernel writes dk, dv)
+# and otherwise the item's float32 partial in the scratch, a key tile's
+# items taking consecutive slots in their order.
+DKDV_ITEM_FIELDS = ("bkv", "key_tile", "head0", "head1", "qtile0", "qtile1", "slot")
+# Streaming multiprocessors of an H100 SXM: the work list is cut so that no
+# item holds more than the call's steps over this count.
+NUM_SMS = 132
+# The least cap on an item's steps, so that a small call, which need not
+# fill the card, is not cut into single steps.
+MIN_ITEM_STEPS = 16
+
+
+def bwd_tile_rows(head_dim: int) -> int:
+    """Rows of the dK/dV kernel's key and query tiles at ``head_dim``, as
+    ``flash_attention_bwd.cu``'s ``KvTile`` sets them."""
+    return 64 if head_dim <= 96 else 32
+
+
+def visible_query_tiles(s_len: int, rows: int, window: int, key_tile: int) -> tuple[int, int]:
+    """The query tiles [first, end) holding a query that sees a key of
+    ``key_tile`` (tiles of ``rows`` positions; causal, and within the last
+    ``window`` keys when ``window`` > 0).  Between a query tile and the key
+    tile the position differences q - k run over one interval; the tile
+    is visible where it meets [0, window)."""
+    k0, n_tiles = key_tile * rows, -(-s_len // rows)
+    first = key_tile
+    end = first
+    while end < n_tiles:
+        q_last = min(end * rows + rows, s_len) - 1
+        if q_last < k0 or (window > 0 and end * rows - (k0 + rows - 1) >= window):
+            break
+        end += 1
+    return first, end
+
+
+def dkdv_work(b: int, s_len: int, h: int, kv: int, rows: int, window: int) -> np.ndarray:
+    """The dK/dV kernel's work list: int32 rows of ``DKDV_ITEM_FIELDS``.
+
+    Each key tile's work is its visible query tiles (tiles of ``rows``
+    positions) times the G = H / KV query heads of its group, one (query
+    tile, head) step each.  With ``cap`` = the call's steps over
+    ``NUM_SMS`` (at least ``MIN_ITEM_STEPS``), a key tile of at most
+    ``cap`` steps is one item;
+    a longer one is cut into the fewest near-equal runs of whole query
+    tiles (runs of heads inside one query tile where G alone exceeds
+    ``cap``) of at most ``cap`` steps, numbered 0, 1, ... in query-tile
+    order, which the reduction sums in that order.  Items are ordered
+    heaviest first (stable, so equal items keep their key tile order)."""
+    g = h // kv
+    n_tiles = -(-s_len // rows)
+    ranges = [visible_query_tiles(s_len, rows, window, kt) for kt in range(n_tiles)]
+    total = b * kv * g * sum(end - first for first, end in ranges)
+    cap = max(MIN_ITEM_STEPS, total // NUM_SMS)
+    pieces = []   # per key tile: (head0, head1, qtile0, qtile1) in order
+    for first, end in ranges:
+        n_q = end - first
+        if g * n_q <= cap:
+            pieces.append([(0, g, first, end)])
+        elif g <= cap:
+            k = -(-n_q // (cap // g))
+            cuts = [first + i * n_q // k for i in range(k + 1)]
+            pieces.append([(0, g, lo, hi) for lo, hi in zip(cuts, cuts[1:])])
+        else:
+            k = -(-g // cap)
+            heads = [i * g // k for i in range(k + 1)]
+            pieces.append([(h0, h1, qt, qt + 1) for qt in range(first, end) for h0, h1 in zip(heads, heads[1:])])
+    items, slot = [], 0
+    for bkv in range(b * kv):
+        for kt, tile in enumerate(pieces):
+            for h0, h1, q0, q1 in tile:
+                items.append((bkv, kt, h0, h1, q0, q1, -1 if len(tile) == 1 else slot))
+                slot += len(tile) > 1
+    items.sort(key=lambda it: -(it[3] - it[2]) * (it[5] - it[4]))
+    return np.asarray(items, dtype=np.int32).reshape(-1, len(DKDV_ITEM_FIELDS))
+
+
+def dkdv_splits(items: np.ndarray) -> np.ndarray:
+    """The key tiles that ``items`` cuts into several: int32 rows (bkv,
+    key tile, first slot, items), in slot order; the reduction kernel sums
+    slots first .. first + items - 1 in that order."""
+    cut = items[items[:, 6] >= 0]
+    rows = {}
+    for bkv, kt, *_, slot in sorted(cut.tolist(), key=lambda it: it[6]):
+        first, n = rows.get((bkv, kt), (slot, 0))
+        rows[(bkv, kt)] = (first, n + 1)
+    return np.asarray([(bkv, kt, first, n) for (bkv, kt), (first, n) in rows.items()],
+                      dtype=np.int32).reshape(-1, 4)
+
+
+@functools.cache
+def _dkdv_plan(b: int, s_len: int, h: int, kv: int, hd: int, window: int, device: torch.device):
+    """The work list and split list of one shape on ``device``, and the
+    partial slots they need; built once per shape."""
+    items = dkdv_work(b, s_len, h, kv, bwd_tile_rows(hd), window)
+    splits = dkdv_splits(items)
+    slots = int(items[:, 6].max()) + 1 if len(items) else 0
+    return (torch.from_numpy(items).to(device), torch.from_numpy(splits).to(device), slots)
 
 
 @functools.cache
@@ -58,7 +163,7 @@ def _kernel():
 @functools.cache
 def _bwd_kernel():
     fn = build.load("flash_attention_bwd").flash_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
@@ -146,16 +251,18 @@ def causal_attention_bwd_plain(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels' function in plain PyTorch: (dq, dk, dv) of
     ``causal_attention`` at q, k, v, given its output ``o`` and the output's
-    gradient ``do``, in float32 arithmetic and the inputs' dtypes.  Each
-    row's log-sum-exp over its visible keys gives ``p`` (0 on masked pairs),
-    ``delta = do . o`` gives ``ds = p (do v^T - delta)``; dk and dv are
-    summed over the query heads of each KV head."""
+    gradient ``do``, in float32 arithmetic (float64 for float64 inputs, a
+    yardstick for both) and the inputs' dtypes.  Each row's log-sum-exp
+    over its visible keys gives ``p`` (0 on masked pairs), ``delta = do .
+    o`` gives ``ds = p (do v^T - delta)``; dk and dv are summed over the
+    query heads of each KV head."""
     b, s_len, h, hd = q.shape
     kv = k.shape[2]
     rep = h // kv
-    qf, of, dof = q.float(), o.float(), do.float()
-    kf = k.float().repeat_interleave(rep, dim=2)
-    vf = v.float().repeat_interleave(rep, dim=2)
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf, of, dof = q.to(acc), o.to(acc), do.to(acc)
+    kf = k.to(acc).repeat_interleave(rep, dim=2)
+    vf = v.to(acc).repeat_interleave(rep, dim=2)
     mask = _mask(s_len, window, q.device)
     scores = (torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale).masked_fill(~mask, NEG_INF)
     lse = torch.logsumexp(scores, dim=-1, keepdim=True)
@@ -222,7 +329,8 @@ def causal_attention_bwd(
     ``do``; each in its input's dtype.
 
     On CUDA tensors (as the forward kernel takes them; o and do of q's
-    shape, dtype and device, contiguous) this launches the three
+    shape, dtype and device, contiguous; all five 16-byte-aligned, as the
+    kernels copy 16-byte chunks with ``cp.async``) this launches the
     ``flash_attention_bwd`` kernels on the current stream and raises if it
     cannot; on CPU tensors it computes ``causal_attention_bwd_plain``.
     ``causal_attention_bwd.launches`` counts the calls that launched them.
@@ -239,16 +347,28 @@ def causal_attention_bwd(
     _check_kernel_shape(q, k, v)
     if not (o.is_contiguous() and do.is_contiguous()):
         raise ValueError("the flash_attention backward kernel takes contiguous o and do")
+    for t in (q, k, v, o, do):
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"the flash_attention backward kernels take 16-byte-aligned tensors; "
+                f"got data at {t.data_ptr():#x}"
+            )
     b, s, h, hd = q.shape
+    kv = k.shape[2]
     kernel = _bwd_kernel()
+    items, splits, slots = _dkdv_plan(b, s, h, kv, hd, int(window), q.device)
+    rows = bwd_tile_rows(hd)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stats = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device)   # lse, delta
+    # One float32 (dk, dv) tile of partial sums per slot of a cut key tile.
+    partial = torch.empty((max(slots, 1), 2, rows, hd), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = kernel(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-            b, s, h, k.shape[2], hd, scale, int(window), int(q.dtype == torch.bfloat16),
+            partial.data_ptr(), items.data_ptr(), len(items), splits.data_ptr(), len(splits),
+            b, s, h, kv, hd, scale, int(window), int(q.dtype == torch.bfloat16),
             stream,
         )
     if err != 0:

@@ -1,8 +1,8 @@
 """AdamW over the port's parameter trees.
 
 Port of the JAX package's ``training/optimizer.py``, with its math: bias
-corrections from the step count, decay added to the step's delta and
-applied to matrices only (``ndim >= 2``), moments stored in
+corrections from the step count, decay added to the step's delta on the
+leaves the reference decays (``decays``), moments stored in
 ``moments_dtype`` (float32, or bfloat16 for very large models) while the
 arithmetic runs in float32.  These are torch ops on each leaf, not
 ``torch.optim.AdamW``, whose decay covers every tensor and is applied in
@@ -29,6 +29,20 @@ class AdamWConfig:
     moments_dtype: torch.dtype = torch.float32
 
 
+def decays(path: str, p: torch.Tensor) -> bool:
+    """Whether AdamW decays the leaf at ``path`` (``leaves_with_paths``'s
+    form) of the port's parameter tree: exactly where the reference's
+    counterpart of that leaf has ``ndim >= 2``.
+
+    The reference tests ``p.ndim >= 2`` (``src/repro/training/optimizer.py:56``)
+    on its stacked tree, where every per-layer leaf carries a leading
+    ``n_groups`` axis (``src/repro/models/transformer.py:110``).  The port keeps
+    one dict per layer under ``params["layers"][i]``, so there a leaf with
+    ``ndim >= 1`` (norm weights, qkv biases, RWKV's ``ln_x``, matrices) is
+    decayed; a top-level leaf keeps the reference's ``ndim >= 2``."""
+    return p.dim() >= (1 if path.startswith("['layers'][") else 2)
+
+
 def adamw_init(params: Any, cfg: AdamWConfig) -> dict[str, Any]:
     """Zero moments of each parameter's shape in ``moments_dtype`` on its
     device, and the step count (an int32 scalar on the first leaf's
@@ -50,27 +64,28 @@ def adamw_update(
     lr_scale: "torch.Tensor | float" = 1.0,
 ) -> tuple[Any, dict[str, Any]]:
     """Returns (new params, new state); ``lr_scale`` multiplies ``cfg.lr``
-    (a schedule's value)."""
+    (a schedule's value).  The leaves that ``decays`` names take the weight
+    decay."""
     step = state["step"] + 1
     t = step.float()
     bc1 = 1.0 - cfg.b1**t
     bc2 = 1.0 - cfg.b2**t
     lr = cfg.lr * lr_scale
 
-    def upd(g, m, v, p):
+    def upd(g, m, v, path, p):
         g32 = g.float()
         m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
         v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g32.square()
         delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
-        if p.dim() >= 2:   # decay matrices only (standard practice)
+        if decays(path, p):
             delta = delta + cfg.weight_decay * p.float()
         new_p = (p.float() - lr * delta).to(p.dtype)
         return new_p, m32.to(cfg.moments_dtype), v32.to(cfg.moments_dtype)
 
-    flat_p = [p for _, p in leaves_with_paths(params)]
+    flat_p = leaves_with_paths(params)
     new = [
-        upd(g, m, v, p)
-        for (_, g), (_, m), (_, v), p in zip(
+        upd(g, m, v, path, p)
+        for (_, g), (_, m), (_, v), (path, p) in zip(
             leaves_with_paths(grads), leaves_with_paths(state["m"]), leaves_with_paths(state["v"]), flat_p,
             strict=True,
         )

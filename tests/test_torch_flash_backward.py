@@ -171,6 +171,20 @@ def test_group_sum_covers_every_query_head(group):
     np.testing.assert_allclose(dv_sum.numpy(), dv_all.numpy(), rtol=1e-5, atol=1e-6)
 
 
+def test_plain_backward_runs_in_float64_for_float64_inputs():
+    """The plain version computes in float64 when given float64 (the
+    yardstick ``chip_smoke.py`` holds both the kernel and the float32 plain
+    version against); it agrees with the float32 one to float32 rounding."""
+    _, (q, k, v, do) = _inputs(1, 40, 4, 2, 32, "float32", seed=5)
+    scale = 32 ** -0.5
+    out = causal_attention_plain(q, k, v, scale=scale, window=16)
+    got = causal_attention_bwd_plain(*(a.double() for a in (q, k, v, out, do)), scale=scale, window=16)
+    want = causal_attention_bwd_plain(q, k, v, out, do, scale=scale, window=16)
+    assert [g.dtype for g in got] == [torch.float64] * 3
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-6
+
+
 def test_masked_pairs_get_no_gradient():
     """A key outside every query's window gets no gradient from a query
     that cannot see it: with window 1 each query sees its own key alone
@@ -202,10 +216,13 @@ def test_backward_wrapper_rejects_a_mismatched_output(which):
 
 
 def test_backward_source_dispatches_every_head_dim():
+    """The launch dispatch and the shared-memory query both cover
+    ``HEAD_DIMS``, in order."""
     src = (fa_mod.build.CSRC_DIR / "flash_attention_bwd.cu").read_text()
-    dispatch = src[src.index("int dispatch("):]
-    dispatch = dispatch[: dispatch.index("default:")]
-    assert tuple(int(d) for d in re.findall(r"case (\d+): return launch<T, \1>", dispatch)) == HEAD_DIMS
+    for entry, call in (("int dispatch(", "launch"), ("int smem_dispatch(", "smem_of")):
+        body = src[src.index(entry):]
+        body = body[: body.index("default:")]
+        assert tuple(int(d) for d in re.findall(rf"case (\d+): return {call}<T, \1>", body)) == HEAD_DIMS
 
 
 @pytest.mark.cuda
@@ -213,7 +230,8 @@ def test_backward_source_dispatches_every_head_dim():
 def test_cuda_backward_kernel_matches_plain_version(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the backward kernel has no CPU mode")
-    for b, s, h, kv, hd, window in [(2, 37, 4, 1, 64, 0), (1, 130, 8, 2, 256, 17), (2, 100, 4, 4, 96, 0)]:
+    for b, s, h, kv, hd, window in [(2, 37, 4, 1, 64, 0), (1, 130, 8, 2, 256, 17), (2, 100, 4, 4, 96, 0),
+                                    (1, 200, 4, 1, 256, 0)]:
         _, tensors = _inputs(b, s, h, kv, hd, dtype, seed=s)
         q, k, v, do = (a.cuda() for a in tensors)
         scale = 1.0 / np.sqrt(hd)
@@ -222,3 +240,22 @@ def test_cuda_backward_kernel_matches_plain_version(dtype):
         torch.cuda.synchronize()
         assert causal_attention_bwd.launches == before + 1
         _close(got, causal_attention_bwd_plain(q, k, v, out, do, scale=scale, window=window), dtype, "kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_backward_kernel_is_deterministic(dtype):
+    """No atomics, sums in one fixed order: two calls on the same inputs give
+    the same bits, also where the dK/dV work list cuts key tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the backward kernel has no CPU mode")
+    for b, s, h, kv, hd, window in [(1, 300, 8, 1, 16, 299), (2, 2048, 4, 1, 256, 0), (2, 512, 16, 16, 64, 0)]:
+        _, tensors = _inputs(b, s, h, kv, hd, dtype, seed=s)
+        q, k, v, do = (a.cuda() for a in tensors)
+        scale = 1.0 / np.sqrt(hd)
+        out = causal_attention(q, k, v, scale=scale, window=window)
+        first = causal_attention_bwd(q, k, v, out, do, scale=scale, window=window)
+        second = causal_attention_bwd(q, k, v, out, do, scale=scale, window=window)
+        torch.cuda.synchronize()
+        for a, b_ in zip(first, second):
+            assert torch.equal(a, b_)

@@ -30,7 +30,7 @@ from repro_torch.training import checkpoint
 from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
 from repro_torch.training.schedule import cosine_schedule, wsd_schedule
 from repro_torch.training.train_loop import TrainConfig, init_train_state, make_train_step
-from repro_torch.training.tree import leaves_with_paths, tree_map, tree_unflatten
+from repro_torch.training.tree import leaves_with_paths, tree_map
 
 CPU = "cpu"
 
@@ -52,32 +52,84 @@ def _np(t):
 # --------------------------------------------------------------------------
 # AdamW
 # --------------------------------------------------------------------------
+def _ref_adamw_run(arch, ref_cfg, steps, seed, jitter, jit):
+    """``steps`` updates (jitted if ``jit``) of the reference's AdamW on its
+    own stacked tree (the reduced ``arch`` from its ``init_params``, every
+    leaf moved by ``jitter`` times seeded noise, so that at ``jitter`` > 0
+    no leaf starts at 0) with seeded gradients; returns the port's config, its tree at the start, the
+    per-step gradients and learning-rate scales mapped into the port's
+    layout through ``params_from_jax``, and the reference's parameters and
+    state at the end."""
+    cfg = get_arch(arch).reduced()
+    rng = np.random.default_rng(seed)
+    jparams = ref_tf.init_params(ref_get_arch(arch).reduced(), jax.random.PRNGKey(0), dtype=jnp.float32)
+    jparams = jax.tree.map(lambda a: a + jitter * rng.standard_normal(a.shape, dtype=np.float32), jparams)
+    params = params_from_jax(cfg, jparams)
+    state = ref_opt.adamw_init(jparams, ref_cfg)
+    update = jax.jit(ref_opt.adamw_update, static_argnums=3) if jit else ref_opt.adamw_update
+    grads, scales = [], []
+    for step in range(steps):
+        g = jax.tree.map(lambda a: jnp.asarray(rng.standard_normal(a.shape, dtype=np.float32)), jparams)
+        scale = 0.5 + 0.25 * step
+        jparams, state = update(g, state, jparams, ref_cfg, scale)
+        grads.append(params_from_jax(cfg, g))
+        scales.append(scale)
+    return cfg, params, grads, scales, jparams, state
+
+
+def _assert_trees_close(cfg, port_params, port_state, jparams, ref_state, rtol, atol):
+    """Parameters and both moments, leaf by leaf, of the port against the
+    reference's stacked tree mapped through ``params_from_jax``."""
+    assert int(port_state["step"]) == int(ref_state["step"])
+    for name, port_tree, ref_tree in (("params", port_params, jparams), ("m", port_state["m"], ref_state["m"]),
+                                      ("v", port_state["v"], ref_state["v"])):
+        want_tree = params_from_jax(cfg, ref_tree)
+        got_leaves, want_leaves = leaves_with_paths(port_tree), leaves_with_paths(want_tree)
+        assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
+        for (path, got), (_, want) in zip(got_leaves, want_leaves):
+            assert got.dtype == want.dtype, (name, path)
+            np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol, err_msg=f"{name}{path}")
+
+
 @pytest.mark.parametrize("moments", ["float32", "bfloat16"])
 def test_adamw_equals_the_reference(moments):
-    """Three updates of the reduced gemma3-1b tree (the reference's
-    parameters, per layer) from seeded gradients, on both sides: new
-    parameters and both moments within 1e-6 relative."""
-    cfg = get_arch("gemma3-1b").reduced()
-    ref_params = ref_tf.init_params(ref_get_arch("gemma3-1b").reduced(), jax.random.PRNGKey(0), dtype=jnp.float32)
-    params = params_from_jax(cfg, ref_params)
-    jparams = tree_map(lambda t: jnp.asarray(t.numpy()), params)
+    """Three updates of the reduced gemma3-1b from seeded gradients: the
+    port on its per-layer tree against the reference's jitted update on its
+    stacked tree; new parameters and both moments within 1e-6 relative."""
     ref_cfg = ref_opt.AdamWConfig(lr=1e-2, moments_dtype=getattr(jnp, moments))
     port_cfg = AdamWConfig(lr=1e-2, moments_dtype=getattr(torch, moments))
-    ref_state, state = ref_opt.adamw_init(jparams, ref_cfg), adamw_init(params, port_cfg)
-    rng = np.random.default_rng(4)
-    for step in range(3):
-        grads = [rng.standard_normal(p.shape, dtype=np.float32) for _, p in leaves_with_paths(params)]
-        g_port = tree_unflatten(params, [torch.from_numpy(g) for g in grads])
-        g_ref = tree_unflatten(params, [jnp.asarray(g) for g in grads])
-        scale = 0.5 + 0.25 * step
-        jparams, ref_state = ref_opt.adamw_update(g_ref, ref_state, jparams, ref_cfg, scale)
-        params, state = adamw_update(g_port, state, params, port_cfg, scale)
-    assert int(state["step"]) == int(ref_state["step"]) == 3
-    for name, port_tree, ref_tree in (("params", params, jparams), ("m", state["m"], ref_state["m"]),
-                                      ("v", state["v"], ref_state["v"])):
-        for (path, got), (_, want) in zip(leaves_with_paths(port_tree), leaves_with_paths(ref_tree)):
-            assert str(got.dtype)[6:] == str(want.dtype), (name, path)
-            np.testing.assert_allclose(_np(got), _np(want), rtol=1e-6, atol=1e-7, err_msg=f"{name}{path}")
+    cfg, params, grads, scales, jparams, ref_state = _ref_adamw_run("gemma3-1b", ref_cfg, 3, seed=4, jitter=0.0, jit=False)
+    state = adamw_init(params, port_cfg)
+    for g, scale in zip(grads, scales):
+        params, state = adamw_update(g, state, params, port_cfg, scale)
+    assert int(state["step"]) == 3
+    _assert_trees_close(cfg, params, state, jparams, ref_state, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "rwkv6-7b", "gemma3-1b"])
+def test_adamw_decays_per_layer_vectors_as_the_reference(arch):
+    """Five updates at lr 1e-2 and weight decay 0.5 of a reduced arch whose
+    layers hold 1-D leaves (norm weights; qwen's qkv biases, RWKV's
+    ``ln_x``), every leaf non-zero from the start: parameters and both
+    moments, leaf by leaf, equal the reference's jitted update on its
+    stacked tree, where those leaves are 2-D and decayed.  The decay moves
+    each per-layer 1-D leaf by far more than the tolerance (checked against
+    the reference without decay), and leaves the top-level vector alone."""
+    ref_cfg = ref_opt.AdamWConfig(lr=1e-2, weight_decay=0.5)
+    port_cfg = AdamWConfig(lr=1e-2, weight_decay=0.5)
+    cfg, params, grads, scales, jparams, ref_state = _ref_adamw_run(arch, ref_cfg, 5, seed=7, jitter=0.5, jit=True)
+    *_, undecayed, _ = _ref_adamw_run(arch, ref_opt.AdamWConfig(lr=1e-2, weight_decay=0.0), 5, seed=7, jitter=0.5, jit=True)
+    want, free = params_from_jax(cfg, jparams), params_from_jax(cfg, undecayed)
+    vectors = [path for path, p in leaves_with_paths(want) if p.dim() == 1]
+    assert any(path.startswith("['layers']") for path in vectors) and "['final_norm']" in vectors
+    for (path, w), (_, f) in zip(leaves_with_paths(want), leaves_with_paths(free)):
+        moved = float((w - f).abs().max())
+        if path in vectors:
+            assert (moved > 1e-3) == path.startswith("['layers']"), (path, moved)
+    state = adamw_init(params, port_cfg)
+    for g, scale in zip(grads, scales):
+        params, state = adamw_update(g, state, params, port_cfg, scale)
+    _assert_trees_close(cfg, params, state, jparams, ref_state, rtol=1e-6, atol=1e-7)
 
 
 def test_adamw_minimizes_quadratic():
@@ -206,9 +258,8 @@ def test_checkpoint_metadata_and_shape_check(tmp_path):
 def test_train_step_equals_the_reference(n_micro):
     """Five steps of reduced qwen from the reference's parameters on the
     same batches, against the reference's jitted step: losses within 1e-4
-    relative.  (The reference stacks each layer position's parameters, so
-    its decay, for ndim >= 2, also reaches the norm weights; at these
-    values that moves the loss by about 1e-7.)"""
+    relative (parameters and moments leaf by leaf:
+    ``test_adamw_decays_per_layer_vectors_as_the_reference``)."""
     name = "qwen1.5-0.5b"
     ref_cfg, cfg = ref_get_arch(name).reduced(), get_arch(name).reduced()
     ref_params = ref_tf.init_params(ref_cfg, jax.random.PRNGKey(1), dtype=jnp.float32)

@@ -13,11 +13,16 @@ and prints no result line):
    each kernel's registers and spills; then the count of tensor-core
    instructions in the SASS of the block_matmul and flash_attention
    libraries (``HGMMA``) and of the wkv6 library (``HMMA``), none of which
-   may be 0; each tensor-core flash_attention instantiation must have
-   exactly its count (``FLASH_TC_HGMMA``); every instantiation of the
-   backward's product kernels (stats, dK/dV, dQ) must have ``HMMA`` and
-   every dQ one ``DMMA``; the backward's kernels must not spill, and each
-   one's shared memory at every head_dim and type must fit 227 KB;
+   may be 0; each wgmma flash_attention instantiation must have exactly
+   its count (``FLASH_TC_HGMMA``), every instantiation of the split-TF32
+   forward kernel (``mma::flash_kernel``: float32 at every head_dim,
+   bfloat16 at 16 and 32) must have ``HMMA``, and the CUDA-core kernel it
+   replaced must be gone; the forward library's registers, spills (none
+   allowed) and shared memory per route and head_dim (within 227 KB);
+   every instantiation of the backward's product kernels (stats, dK/dV,
+   dQ) must have ``HMMA`` and every dQ one ``DMMA``; the backward's
+   kernels must not spill, and each one's shared memory at every head_dim
+   and type must fit 227 KB;
 3. kernel vs plain: each kernel's wrapper on the card at the reference's
    test shapes and ragged ones (``block_matmul`` also at the serving path's
    shapes and, in bfloat16, at ragged tensor-core tiles and 4096^3), held
@@ -57,7 +62,7 @@ and prints no result line):
    row within ``GRAD_ROW_TOL``, a second call bitwise equal to the first,
    and a planted one-tile fault in dk past the limit; at the train shapes
    also the kernel's and the float32 plain version's row errors against
-   the plain version in float64;
+   the plain version in float64, and the same for the forward kernel;
 7b. train path: ``make_train_step`` of qwen1.5-0.5b and gemma3-1b at full
    width and depth, float32, 4 microbatches of 2 x 2048 (cut from
    ``train_4k``), one warm and 3 timed steps on ``SyntheticTokens``, one
@@ -93,7 +98,8 @@ and prints no result line):
     eagerly and replayed from a CUDA graph (device time alone); the
     backward's bound at the float32 rate and at the split-TF32 rate
     (495 / 3 TFLOP/s), and the float32 forward kernel at the train shapes
-    beside its plain version, SDPA's float32 forward and its bound.
+    beside its plain version, SDPA's float32 forward and its bounds at the
+    same two rates.
 
 Phases 8-12 run torch ops, not hand kernels (the reference jits them; none
 reaches a Pallas kernel): their times, launches per call and bounds go on
@@ -342,16 +348,22 @@ def ptxas_resources(name: str) -> dict[str, tuple[int, int]]:
     return out
 
 
+def printed_resources(name: str) -> tuple[dict[str, tuple[int, int]], list[str]]:
+    """ptxas_resources of library ``name``, printed, and the kernels that
+    spill."""
+    res = ptxas_resources(name)
+    print(f"{name}: registers / spill bytes per kernel (ptxas)")
+    for fn_name, (regs, spill) in sorted(res.items()):
+        print(f"  {regs:4d} / {spill:4d}  {fn_name}")
+    return res, [fn_name for fn_name, (_, spill) in res.items() if spill]
+
+
 def phase_bwd_resources() -> dict:
     """The backward library's kernels: registers and spills from ptxas (no
     spills anywhere) and each kernel's dynamic shared memory at every
     head_dim and type, from the library itself (within the 227 KB a block
     may take)."""
-    res = ptxas_resources("flash_attention_bwd")
-    print("flash_attention_bwd: registers / spill bytes per kernel (ptxas)")
-    for fn_name, (regs, spill) in sorted(res.items()):
-        print(f"  {regs:4d} / {spill:4d}  {fn_name}")
-    spilled = [fn_name for fn_name, (_, spill) in res.items() if spill]
+    res, spilled = printed_resources("flash_attention_bwd")
     if len(res) != 4 * 2 * len(fa_mod.HEAD_DIMS) or spilled:
         raise AssertionError(f"flash_attention_bwd: {len(res)} kernels in the ptxas report, spills in {spilled}")
     fn = build.load("flash_attention_bwd").flash_attention_bwd_smem
@@ -365,6 +377,43 @@ def phase_bwd_resources() -> dict:
     for mangled, (regs, _) in res.items():
         m = re.search(rf"({'|'.join(BWD_KERNEL_NAMES[::-1])})I(f|13__nv_bfloat16)Li(\d+)E", mangled)
         short[f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bfloat16'},{m.group(3)}>" if m else mangled] = regs
+    return {"registers": short, "smem_bytes": smem}
+
+
+# The split-TF32 forward kernel's instantiations, as the SASS and ptxas name
+# them (mma::flash_kernel<T, hd>), and the CUDA-core kernel it replaced
+# (flash_kernel<T, hd> directly in the file's anonymous namespace).
+FWD_MMA_KERNEL = r"3mma12flash_kernelI"
+FWD_DELETED_KERNEL = r"(?<!3mma)(?<!2tc)12flash_kernelI"
+
+
+def phase_fwd_resources() -> dict:
+    """The forward library's kernels: registers and spills from ptxas (no
+    spills anywhere; one split-TF32 instantiation per route case, and none
+    of the deleted CUDA-core kernel) and the dynamic shared memory of the
+    kernel each (type, head_dim) takes, from the library itself (within
+    the 227 KB a block may take)."""
+    res, spilled = printed_resources("flash_attention")
+    mma = [fn_name for fn_name in res if re.search(FWD_MMA_KERNEL, fn_name)]
+    deleted = [fn_name for fn_name in res if re.search(FWD_DELETED_KERNEL, fn_name)]
+    cases = [(dt, hd) for dt in (torch.float32, torch.bfloat16) for hd in fa_mod.HEAD_DIMS
+             if route(dt, hd) == "tf32-mma"]
+    if spilled or deleted or len(mma) != len(cases):
+        raise AssertionError(f"flash_attention: spills in {spilled}, deleted kernel {deleted}, "
+                             f"{len(mma)} split-TF32 kernels for {len(cases)} route cases")
+    fn = build.load("flash_attention").flash_attention_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    smem = {f"{str(dt)[6:]} hd {hd} {route(dt, hd)}": fn(hd, int(dt == torch.bfloat16))
+            for dt in (torch.float32, torch.bfloat16) for hd in fa_mod.HEAD_DIMS}
+    print("  dynamic shared memory (bytes): " + "; ".join(f"{k} {v}" for k, v in smem.items()))
+    if max(smem.values()) > SMEM_PER_BLOCK or min(smem.values()) <= 0:
+        raise AssertionError(f"flash_attention's shared memory outside (0, {SMEM_PER_BLOCK}]: {smem}")
+    short = {}
+    for mangled, (regs, _) in res.items():
+        m = re.search(r"(3mma|2tc)12flash_kernelI(f|13__nv_bfloat16)?Li(\d+)E", mangled)
+        name = {"3mma": "mma", "2tc": "tc"}[m.group(1)] if m else None
+        dt = {"f": "float,", "13__nv_bfloat16": "bfloat16,", None: ""}[m.group(2)] if m else ""
+        short[f"{name}::flash_kernel<{dt}{m.group(3)}>" if m else mangled] = regs
     return {"registers": short, "smem_bytes": smem}
 
 
@@ -726,10 +775,12 @@ def tile_fault_err(q, k, v, scale, window, want) -> float | None:
     return row_rel_err(fault, want)
 
 
-def check_flash(shapes, dtypes) -> float:
+def check_flash(shapes, dtypes, against_f64: bool = False) -> float:
     """Kernel vs plain version, elementwise (FLASH_TOL) and per row
     (FLASH_ROW_TOL, which must also catch a planted one-tile fault on long
-    shapes); returns the largest absolute error."""
+    shapes); returns the largest absolute error.  With ``against_f64``,
+    also prints the kernel's and the plain version's row errors against
+    the plain version in float64 (a reading, not a check)."""
     worst = 0.0
     for dtype in dtypes:
         for i, shape in enumerate(shapes):
@@ -753,6 +804,11 @@ def check_flash(shapes, dtypes) -> float:
                 raise AssertionError(f"flash_attention disagrees with its plain version at {shape} {dtype}")
             if fault_err is not None and fault_err <= row_tol:
                 raise AssertionError(f"FLASH_ROW_TOL cannot see a one-tile fault at {shape} {dtype}: {fault_err:.3e}")
+            if against_f64:
+                exact = causal_attention_plain(q.double(), k.double(), v.double(), scale=scale, window=window)
+                print(f"    against float64: kernel row_rel_err={row_rel_err(got, exact):.3e}; "
+                      f"{str(dtype)[6:]} plain row_rel_err={row_rel_err(want, exact):.3e}")
+                del exact
             worst = max(worst, err)
     return worst
 
@@ -1080,16 +1136,17 @@ def phase_ssm_scans() -> dict:
     return {"max_abs_err": worst, **times}
 
 
-def flash_bound(key, dtype) -> tuple[float, str]:
+def flash_bound(key, dtype, ops_per_s=None) -> tuple[float, str]:
     """Least time (ms): q, k, v read and out written once at the memory
     rate, or 4 * hd operations per unmasked (query, key) pair and head (the
-    two products) at the peak rate of the type, whichever is longer."""
+    two products) at ``ops_per_s`` (by default the peak rate of the type),
+    whichever is longer."""
     b, s, h, kv, hd, window = key
     size = torch.empty((), dtype=dtype).element_size()
     t_bytes = (2 * b * s * h * hd + 2 * b * s * kv * hd) * size / HBM_BYTES_PER_S * 1e3
     w = window if window > 0 else s
     pairs = sum(min(i + 1, w) for i in range(s))
-    t_ops = 4.0 * hd * pairs * b * h / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = 4.0 * hd * pairs * b * h / (ops_per_s or PEAK_OPS_PER_S[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1564,12 +1621,15 @@ def phase_train_times(calls: Counter) -> tuple[dict, list[dict]]:
             "plain_ms": time_ms(lambda: causal_attention_plain(q, k, v, scale=scale, window=window), 3, warmup=1),
             "library_ms": time_ms(sdpa_call(q, k, v, scale, window), 10, warmup=2),
             "bound_ms": fwd_bound, "bound_by": fwd_by,
+            "bound_split_tf32_ms": flash_bound(key, dtype, SPLIT_TF32_OPS_PER_S)[0],
         }
         print(
-            f"    forward at that shape ({2 * n} calls a step under remat): kernel={f['ms']:.6f} "
-            f"graph={f['graph_ms']:.6f} plain={f['plain_ms']:.6f} sdpa={f['library_ms']:.6f} "
-            f"bound={fwd_bound:.6f} ({fwd_by}) graph share={fwd_bound / f['graph_ms']:.4%} "
-            f"kernel / sdpa={f['ms'] / f['library_ms']:.3f}"
+            f"    forward at that shape ({2 * n} calls a step under remat), {route(dtype, key[4])}: "
+            f"kernel={f['ms']:.6f} graph={f['graph_ms']:.6f} plain={f['plain_ms']:.6f} sdpa={f['library_ms']:.6f} "
+            f"bound={fwd_bound:.6f} ({fwd_by}, f32 FMA) graph share={fwd_bound / f['graph_ms']:.4%}; "
+            f"split-TF32 bound={f['bound_split_tf32_ms']:.6f} graph share="
+            f"{f['bound_split_tf32_ms'] / f['graph_ms']:.4%}; kernel / sdpa={f['ms'] / f['library_ms']:.3f} "
+            f"graph / sdpa={f['graph_ms'] / f['library_ms']:.3f}"
         )
         forward.append(f)
         del q, k, v, o, do
@@ -2016,6 +2076,12 @@ def main() -> int:
     matmul_hgmma = phase("tensor cores: HGMMA in the block_matmul library", phase_tensor_cores, "block_matmul", "HGMMA")
     hgmma = phase("tensor cores: HGMMA in the flash_attention library", phase_tensor_cores, "flash_attention", "HGMMA",
                   {rf"tc12flash_kernelILi{hd}E": FLASH_TC_HGMMA[hd] for hd in TENSOR_CORE_HEAD_DIMS})
+    # Every split-TF32 instantiation (float32 at each head_dim, bfloat16 at
+    # 16 and 32) runs mma.sync.
+    n_mma = sum(route(dt, hd) == "tf32-mma" for dt in (torch.float32, torch.bfloat16) for hd in fa_mod.HEAD_DIMS)
+    fwd_hmma = phase("tensor cores: HMMA in the flash_attention library", phase_tensor_cores, "flash_attention",
+                     "HMMA", None, {FWD_MMA_KERNEL: n_mma})
+    fwd_resources = phase("flash_attention: registers, spills, shared memory", phase_fwd_resources)
     hmma = phase("tensor cores: HMMA in the wkv6 library", phase_tensor_cores, "wkv6", "HMMA")
     # Every instantiation (2 types x 6 head_dims) of the backward's product
     # kernels runs mma.sync; the reduction kernel has no product.
@@ -2061,6 +2127,8 @@ def main() -> int:
         phase(f"model-zoo correctness: {name} float32", phase_zoo_check, name)
     scans = phase("model-zoo correctness: hymba's sequential scan against the chunked one", phase_ssm_scans)
 
+    phase("kernel vs plain: flash_attention at the train path's shapes, and against float64", check_flash,
+          TRAIN_BWD_SHAPES, (torch.float32,), True)
     phase("kernel vs plain: flash_attention_bwd, test and ragged shapes", check_flash_bwd,
           FLASH_TEST_SHAPES + FLASH_RAGGED_SHAPES + BWD_GROUP8_SHAPES, (torch.float32, torch.bfloat16))
     checks["flash_attention_bwd"] = {"max_abs_err": phase(
@@ -2110,7 +2178,9 @@ def main() -> int:
             **({"shapes_checked": checks[name]["shapes_checked"]} if "shapes_checked" in checks[name] else {}),
             **({"sass_hgmma": matmul_hgmma, "routes": {"main path": path_routes, "kernel vs plain": checks[name]["routes"]}}
                if name == "block_matmul" else {}),
-            **({"sass_hgmma": hgmma, "launches_by_path": {n: v["flash_attention"] for n, v in zoo_launches.items()
+            **({"sass_hgmma": hgmma, "sass_hmma": fwd_hmma, "registers": fwd_resources["registers"],
+                "smem_bytes": fwd_resources["smem_bytes"],
+                "launches_by_path": {n: v["flash_attention"] for n, v in zoo_launches.items()
                                                           if "flash_attention" in v}
                 | {f"train {n}": v["launches"]["flash_attention"] for n, v in train.items()},
                 "routes": flash_routes, "train_forward_f32": train_forward} if name == "flash_attention" else {}),

@@ -15,52 +15,97 @@
 // p to v's dtype, while l sums them unrounded.  The output is in q's dtype.
 //
 // Layout.  q and out are (B, S, H, hd), k and v (B, S, KV, hd), all
-// contiguous: the natural layout of the model, so no transposed or
+// contiguous and 16-byte-aligned (both kernels copy 16-byte chunks with
+// cp.async): the natural layout of the model, so no transposed or
 // head-repeated copies are made.  A block reads KV head h / G directly.
 //
-// Two routes, fixed by type and head size (kernels/flash_attention.py::route
-// mirrors this dispatch; neither gives way to the other at run time):
+// Two kernels, both on the tensor cores, fixed by type and head size
+// (kernels/flash_attention.py::route mirrors this dispatch; neither gives
+// way to the other at run time):
 //
-//   bfloat16, hd in {64, 96, 128, 256} -> tensor-core kernel (tc::flash_kernel)
-//   bfloat16, hd in {16, 32}; every float32 shape -> CUDA-core kernel
-//                                                    (flash_kernel)
+//   bfloat16, hd in {64, 96, 128, 256} -> wgmma kernel (tc::flash_kernel)
+//   every float32 shape; bfloat16, hd in {16, 32}
+//                                      -> split-TF32 mma.sync kernel
+//                                         (mma::flash_kernel)
 //
-// float32 stays off the tensor cores: there they would compute in TF32,
-// which breaks the float32 tolerances.  hd 16 and 32 occur in tests only.
-// hd 96 (phi-3-vision: 3072 / 32 heads) is not a multiple of the 64-column,
-// 128-byte-swizzle panels the other head dims use; it takes 32-column,
-// 64-byte-swizzle panels instead (tc::Panel), so q, k and v are read as
-// they are, never padded to 128.
+// hd 16 and 32 occur in tests only.  hd 96 (phi-3-vision: 3072 / 32 heads)
+// is not a multiple of the 64-column, 128-byte-swizzle panels the other
+// wgmma head dims use; it takes 32-column, 64-byte-swizzle panels instead
+// (tc::Panel), so q, k and v are read as they are, never padded to 128.
 //
 // What bounds it.  On the serving path (gemma3-1b: B = 2, S = 2048, H = 4,
 // KV = 1, hd = 256, bfloat16) one global layer needs about 17 GFLOP of
 // unmasked work and moves about 10 MB, so it is bound by operations: the
-// tensor cores' 989 TFLOP/s in bfloat16, the CUDA cores' 67 TFLOP/s in
-// float32.
+// tensor cores' 989 TFLOP/s in bfloat16.  The float32 train path's calls
+// (qwen1.5-0.5b: (2, 2048, 16, 16, 64); gemma3-1b's) need as much work at
+// float32 accuracy, which the tensor cores give as split TF32 at a third
+// of TF32's 495 TFLOP/s (165), where the CUDA cores' float32 FMAs peak at
+// 67; on mma.sync the H100 runs TF32 at about 210-250 TFLOP/s (PERF.md,
+// tools/flash_fwd_variants.py), split TF32 at 70-85, so mma.sync's
+// instruction rate, not the 165, is this kernel's ceiling.
 //
 // Both kernels share the block structure.  The TPU kernel carries
 // (m, l, acc) across a sequential KV grid axis in VMEM.  Here blocks run in
 // parallel and in no order, so one block owns one (batch*head, 64-query
 // tile) and walks the KV tiles in a loop of its own.  Query tiles are issued
-// heaviest first (the last tile of a causal row sees the most keys).  KV
-// tiles that lie wholly outside the causal window of the query tile are
-// skipped: the masked scores they would add carry weight exp(NEG_INF - m) = 0
-// once any real score is seen, and the diagonal tile, always processed,
-// holds one for every row, so the function is unchanged.  A row whose first
-// processed tile is all masked gets m = NEG_INF and p = exp(0) = 1 there; the
-// correction exp(m_prev - m_new) = 0 wipes that when a real score arrives.
-// NEG_INF is finite (-1e30), as in the reference: -inf would make
-// exp(-inf - -inf) NaN.  l is guarded by max(l, 1e-30) before the division.
-// Ragged S is masked inside the kernel and rows past S are not stored.
+// heaviest first across every (batch, head) (the last tile of a causal row
+// sees the most keys).  KV tiles that lie wholly outside the causal window
+// of the query tile are skipped: the masked scores they would add carry
+// weight exp(NEG_INF - m) = 0 once any real score is seen, and the diagonal
+// tile, always processed, holds one for every row, so the function is
+// unchanged.  A row whose first processed tile is all masked gets
+// m = NEG_INF and p = exp(0) = 1 there; the correction exp(m_prev - m_new)
+// = 0 wipes that when a real score arrives.  NEG_INF is finite (-1e30), as
+// in the reference: -inf would make exp(-inf - -inf) NaN.  l is guarded by
+// max(l, 1e-30) before the division.  Ragged S is masked inside the kernel
+// and rows past S are not stored.  Both run the softmax in base 2 (scores
+// times scale * log2 e, then exp2) on the score fragment in registers:
+// thread t of a warp holds rows t / 4 and + 8 of the warp's 16, columns
+// 8 j + 2 (t % 4) and + 1; row maxima take two __shfl_xor_sync steps within
+// the quad of threads that share a row, and l is a per-thread partial sum,
+// reduced across the quad once at the end.
 //
-// The CUDA-core kernel computes both products with float32 FMAs (a 4x2 or
-// 4x4 register micro-tile per thread for the scores, a 4x(hd/16) micro-tile
-// for the output, operands staged in shared memory as float32 with rows
-// padded by one element so that neither product has bank conflicts), with m
-// and l in shared memory and the accumulator in registers.
+// The split-TF32 kernel (mma::flash_kernel) keeps float32 accuracy on the
+// tensor cores, where the CUDA-core kernel it replaced fed every FMA with
+// shared-memory loads and took the scores through shared memory:
+//  - Products: S = q k^T and O += P v on mma.sync.m16n8k8 TF32 (tf32.cuh).
+//    A float32 operand is split into a high and a low TF32 part and a
+//    product takes lo*hi + hi*lo + hi*hi; a bfloat16 operand, and p rounded
+//    to bfloat16, are exact, so bfloat16 takes one mma a product.
+//  - Accumulation: the tensor core cuts the low bits of each sum it forms,
+//    so q k^T adds its accumulators into a float32 sum every CHAIN k8 steps
+//    over d, and each KV tile's P v goes into zeroed accumulators, folded
+//    into O on the CUDA cores as O = O * corr + PV: O's running sum never
+//    lives in the tensor core across tiles.
+//  - Fragments: four warps own 16 query rows each, with every key of the
+//    tile and all of d, so that the softmax needs no exchange between warps.
+//    At hd 256 that would be 128 registers a thread for O alone, and the
+//    kernel spilled: there eight warps take the 64 rows, the two of a row
+//    group half of d each (mma::d_split); they add each other's partial
+//    scores through shared memory behind a barrier of their own, so both
+//    hold the same sum and run the same softmax, and each keeps half of O.
+//    Where a warp's d is 64 or less, q's fragments are split once and held
+//    in registers for the whole KV walk; above, they are read from shared
+//    memory and split per k8 step.  P's A fragment is the score accumulator itself: inside each
+//    k8 step of P v, k index t4 stands for key 2 t4 and t4 + 4 for 2 t4 + 1,
+//    on P's side and on v's alike, so accumulator columns (2 t4, 2 t4 + 1)
+//    are A's (t4, t4 + 4) without shuffles.  Staged rows are padded by 16
+//    bytes, so that the [row g][col t4] reads of q and k and the
+//    [2 t4][g] reads of v are free of bank conflicts.
+//  - Staging: q once, then a two-stage cp.async ring of (k, v) tiles, the
+//    next tile loading while the current one computes; rows past S are
+//    zero-filled by the copy.  A tile whose keys every row of the warp sees
+//    takes a softmax without the per-element mask test.
+//  - Tiles: 64 query rows; 64 keys up to hd 64 and 32 above (mma::kv_tile),
+//    so that no instantiation spills and shared memory stays within
+//    227 KB: float32 25,600 / 46,080 / 87,040 bytes at hd 16 / 32 / 64,
+//    76,800 / 101,376 / 216,064 at hd 96 / 128 / 256; bfloat16 15,360 /
+//    25,600 at hd 16 / 32 (mma::Smem; flash_attention_smem reports them).
+//    O takes a warp's d / 2 registers a thread, so P v passes over d in
+//    groups of n8 tiles.
 //
-// The tensor-core kernel runs both products on Hopper's tensor cores with
-// wgmma (sm_90a).  One warpgroup (128 threads) owns 64 query rows.
+// The wgmma kernel runs both products on Hopper's tensor cores with wgmma
+// (sm_90a).  One warpgroup (128 threads) owns 64 query rows.
 //  - Shared memory holds the q tile once and a two-stage ring of (k, v)
 //    tiles of 64 keys (32 at hd 256, see kv_tile), loaded with 16-byte
 //    cp.async copies (rows past S zero-filled) while the previous tile is
@@ -76,12 +121,8 @@
 //  - S = q k^T is wgmma m64n64k16 (m64n32k16 at hd 256) with both operands
 //    in shared memory over hd / 16 steps; k stored [key][d] is already
 //    K-major, so no transpose.
-//  - The online softmax works on the accumulator fragment itself: thread t
-//    of warp w holds rows 16 w + t / 4 and + 8, columns 8 j + 2 (t % 4) and
-//    + 1.  Row maxima take two __shfl_xor_sync steps within the quad of
-//    threads that share a row; m stays in registers, and l is kept as a
-//    per-thread partial sum, reduced across the quad once at the end.  The
-//    softmax runs in base 2 (scores times scale * log2 e, then exp2).
+//  - The online softmax works on the accumulator fragment itself (above);
+//    m stays in registers.
 //  - O += P v takes P from registers: the S fragment, rounded to packed
 //    bfloat16, is wgmma's A-register layout for k16 (as in FlashAttention-3).
 //    That rounding is the TPU kernel's cast of p to v's type; l sums p
@@ -108,212 +149,12 @@
 #include <cstdint>
 #include <initializer_list>
 
+#include "tf32.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int THREADS = 256;        // 16 x 16 threads
-constexpr int WARPS = THREADS / 32;
-constexpr int BQ = 64;              // query rows per block
-
-// KV rows per tile: 64, or 32 at hd = 256, so that shared memory stays near
-// 100 KB and two blocks fit on one SM.
-template <int HD>
-struct KvTile {
-  static constexpr int value = HD >= 256 ? 32 : 64;
-};
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// p as the product with v sees it: unchanged for float32, rounded to
-// bfloat16 (to nearest even, as torch's and XLA's casts) for bfloat16.
-__device__ __forceinline__ float as_v_type(float p, const float*) { return p; }
-__device__ __forceinline__ float as_v_type(float p, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(p));
-}
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  constexpr int BK = KvTile<HD>::value;
-  return sizeof(float) *
-         (BQ * (HD + 1)      // q tile
-          + BK * (HD + 1)    // k tile, then v tile
-          + BQ * (BK + 1)    // scores, then probabilities
-          + 3 * BQ);         // m, l, correction per row
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int s_len, int h_q,
-             int h_kv, float scale, int window) {
-  constexpr int BK = KvTile<HD>::value;
-  constexpr int TM = BQ / 16;   // rows per thread (scores and output)
-  constexpr int TN = BK / 16;   // score columns per thread
-  constexpr int TD = HD / 16;   // output columns per thread
-
-  extern __shared__ float smem[];
-  float* qs = smem;                    // [BQ][HD + 1]
-  float* kvs = qs + BQ * (HD + 1);     // k: [BK][HD + 1]; v: [BK][HD]
-  float* ss = kvs + BK * (HD + 1);     // [BQ][BK + 1]
-  float* m_s = ss + BQ * (BK + 1);
-  float* l_s = m_s + BQ;
-  float* c_s = l_s + BQ;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int b = blockIdx.y / h_q;
-  const int h = blockIdx.y % h_q;
-  const int hk = h / (h_q / h_kv);
-  const size_t q_stride = static_cast<size_t>(h_q) * HD;    // between tokens
-  const size_t kv_stride = static_cast<size_t>(h_kv) * HD;
-  const T* qb = q + static_cast<size_t>(b) * s_len * q_stride + static_cast<size_t>(h) * HD;
-  const T* kb = k + static_cast<size_t>(b) * s_len * kv_stride + static_cast<size_t>(hk) * HD;
-  const T* vb = v + static_cast<size_t>(b) * s_len * kv_stride + static_cast<size_t>(hk) * HD;
-  T* ob = o + static_cast<size_t>(b) * s_len * q_stride + static_cast<size_t>(h) * HD;
-
-  for (int idx = tid; idx < BQ * HD; idx += THREADS) {
-    const int r = idx / HD;
-    const int d = idx % HD;
-    const int gq = q0 + r;
-    qs[r * (HD + 1) + d] = gq < s_len ? load_f32(qb + gq * q_stride + d) : 0.0f;
-  }
-  for (int r = tid; r < BQ; r += THREADS) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.0f;
-  }
-
-  float acc[TM][TD];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TD; ++j) acc[i][j] = 0.0f;
-
-  // Keys [k_begin, k_end) hold every unmasked score of this query tile.
-  const int k_end = min(q0 + BQ, s_len);
-  const int k_begin = window > 0 ? (max(0, q0 - window + 1) / BK) * BK : 0;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();   // the previous v tile and probabilities are consumed
-    for (int idx = tid; idx < BK * HD; idx += THREADS) {
-      const int r = idx / HD;
-      const int d = idx % HD;
-      const int gk = k0 + r;
-      kvs[r * (HD + 1) + d] = gk < s_len ? load_f32(kb + gk * kv_stride + d) : 0.0f;
-    }
-    __syncthreads();
-
-    float sc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) sc[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float a[TM];
-      float bk[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = qs[(ty + 16 * i) * (HD + 1) + d];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bk[j] = kvs[(tx + 16 * j) * (HD + 1) + d];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) sc[i][j] = fmaf(a[i], bk[j], sc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = ty + 16 * i;
-      const int qp = q0 + r;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int c = tx + 16 * j;
-        const int kp = k0 + c;
-        const bool keep = kp <= qp && kp < s_len && (window <= 0 || qp - kp < window);
-        ss[r * (BK + 1) + c] = keep ? sc[i][j] * scale : NEG_INF;
-      }
-    }
-    __syncthreads();   // scores complete; the k tile is free
-
-    for (int idx = tid; idx < BK * HD; idx += THREADS) {
-      const int r = idx / HD;
-      const int d = idx % HD;
-      const int gk = k0 + r;
-      kvs[r * HD + d] = gk < s_len ? load_f32(vb + gk * kv_stride + d) : 0.0f;
-    }
-    // Online softmax: each warp owns rows warp, warp + 8, ...
-    for (int r = warp; r < BQ; r += WARPS) {
-      float* row = ss + r * (BK + 1);
-      float mx = NEG_INF;
-      for (int c = lane; c < BK; c += 32) mx = fmaxf(mx, row[c]);
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.0f;
-      for (int c = lane; c < BK; c += 32) {
-        const float p = expf(row[c] - m_new);
-        sum += p;
-        row[c] = as_v_type(p, q);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-        c_s[r] = corr;
-      }
-    }
-    __syncthreads();   // probabilities, corrections and the v tile are ready
-
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const float corr = c_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TD; ++j) acc[i][j] *= corr;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[TM];
-      float vv[TD];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) p[i] = ss[(ty + 16 * i) * (BK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < TD; ++j) vv[j] = kvs[kk * HD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TD; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
-    }
-  }
-
-  // l_s was last written before the loop's final barrier.
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = ty + 16 * i;
-    const int gq = q0 + r;
-    if (gq >= s_len) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < TD; ++j)
-      store_f32(ob + gq * q_stride + tx + 16 * j, acc[i][j] / l);
-  }
-}
+constexpr int SMEM_LIMIT = 232448;   // dynamic shared memory a block may use on sm_90
 
 // Allows `kernel` `bytes` of dynamic shared memory (needed above 48 KB) once
 // per device, at the first launch, so that a launch captured into a CUDA
@@ -333,40 +174,372 @@ cudaError_t allow_dynamic_smem(const void* kernel, size_t bytes, unsigned& confi
   return cudaSuccess;
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int s, int h, int kv, float scale, int window,
-           cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  static unsigned configured = 0;
-  cudaError_t err = allow_dynamic_smem(reinterpret_cast<const void*>(flash_kernel<T, HD>),
-                                       smem, configured);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s + BQ - 1) / BQ, b * h);
-  flash_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), s, h, kv, scale, window);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int b,
-             int s, int h, int kv, int hd, float scale, int window,
-             cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, b, s, h, kv, scale, window, stream);
-    case 32: return launch<T, 32>(q, k, v, o, b, s, h, kv, scale, window, stream);
-    case 64: return launch<T, 64>(q, k, v, o, b, s, h, kv, scale, window, stream);
-    case 96: return launch<T, 96>(q, k, v, o, b, s, h, kv, scale, window, stream);
-    case 128: return launch<T, 128>(q, k, v, o, b, s, h, kv, scale, window, stream);
-    case 256: return launch<T, 256>(q, k, v, o, b, s, h, kv, scale, window, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// cp.async copies 16-byte chunks: rows are hd * sizeof(T) bytes apart, so
+// the bases must be 16-byte aligned (the wrapper checks this too).
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16) return false;
+  return true;
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core route: bfloat16, hd in {64, 96, 128, 256}.  See the note at the
-// top.
+// Split-TF32 route: every float32 shape, bfloat16 at hd 16 and 32.  See the
+// note at the top.
+// ---------------------------------------------------------------------------
+namespace mma {
+
+using bf16 = __nv_bfloat16;
+using tf32::divisor_upto;
+using tf32::exact_tf32;
+using tf32::ld;
+using tf32::to_tf32;
+
+constexpr int BQ = 64;         // query rows per block: four row groups of 16
+constexpr float LOG2E = 1.4426950408889634f;
+// k8 steps of q k^T that run on one tensor-core accumulator before it is
+// added, in float32, to the score sum: the tensor core cuts the low bits of
+// each sum it forms, and a short chain keeps that cut small against the sum.
+constexpr int CHAIN = 4;
+
+// Keys per KV tile: 64 up to hd 64; 32 above, where the output fragment
+// (hd / 2 registers a thread) and the staged rows grow.
+template <int HD>
+__host__ __device__ constexpr int kv_tile() { return HD <= 64 ? 64 : 32; }
+
+// Warps that share a row group's d: 2 at hd 256, each with half of O's
+// columns (64 registers a thread, not 128, which spill).
+template <int HD>
+__host__ __device__ constexpr int d_split() { return HD >= 256 ? 2 : 1; }
+
+// Shared memory: the q tile, two stages of (k, v) tiles, each a [rows][SA]
+// array of T with rows padded by 16 bytes, and, where warps split d, each
+// warp's partial scores, [warp][element of the fragment][lane] floats.
+template <typename T, int HD>
+struct Smem {
+  static constexpr int BK = kv_tile<HD>();
+  static constexpr int WD = d_split<HD>();
+  static constexpr int THREADS = 128 * WD;
+  static constexpr int SA = HD + 16 / static_cast<int>(sizeof(T));   // elements between rows
+  static constexpr int Q = BQ * SA * static_cast<int>(sizeof(T));   // bytes of the q tile
+  static constexpr int KV = BK * SA * static_cast<int>(sizeof(T));  // bytes of a k or a v tile
+  static constexpr int STAGE = 2 * KV;                                // k then v
+  static constexpr int RING = Q;
+  static constexpr int XS = RING + 2 * STAGE;                         // partial scores
+  static constexpr int BYTES = XS + (WD > 1 ? THREADS * BK / 2 * 4 : 0);
+};
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// c += a b on TF32 operands, all into c: lo*hi and hi*lo where a side is
+// split (AX, BX: whether a, b are exact), then hi*hi.
+template <bool AX, bool BX>
+__device__ __forceinline__ void mma_x(float (&c)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                      uint32_t bh0, uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  if constexpr (!AX) tf32::mma(c, al, bh0, bh1);
+  if constexpr (!BX) tf32::mma(c, ah, bl0, bl1);
+  tf32::mma(c, ah, bh0, bh1);
+}
+
+// Rows [row0, row0 + ROWS) of a (B, S, heads, HD) tensor at one (b, head),
+// `src` pointing at (b, 0, head, 0) and `stride` elements between
+// positions, copied into a [ROWS][SA] tile at shared address `dst`; rows
+// past S are zero-filled (the source address then points at row 0).
+template <typename T, int HD, int ROWS>
+__device__ __forceinline__ void load_rows(uint32_t dst, const T* src, size_t stride, int row0, int s_len) {
+  constexpr int SA = Smem<T, HD>::SA;
+  constexpr int PER = 16 / static_cast<int>(sizeof(T));   // elements per 16-byte chunk
+  constexpr int CH = HD / PER;
+  for (int idx = static_cast<int>(threadIdx.x); idx < ROWS * CH; idx += Smem<T, HD>::THREADS) {
+    const int r = idx / CH;
+    const int c = idx % CH;
+    const bool in = row0 + r < s_len;
+    tf32::cp_async16(dst + static_cast<uint32_t>((r * SA + c * PER) * sizeof(T)),
+                     src + static_cast<size_t>(in ? row0 + r : 0) * stride + c * PER, in);
+  }
+}
+
+// q's A fragment for k8 step kk: a = q[g][8 kk + t4], q[g + 8][..],
+// q[g][8 kk + t4 + 4], q[g + 8][..] of the warp's rows, `qr` pointing at
+// q[g][t4] in the staged tile.
+template <typename T, int SA>
+__device__ __forceinline__ void q_fragment(const T* qr, int kk, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  constexpr bool X = exact_tf32<T>();
+  to_tf32<X>(ld(qr + 8 * kk), hi[0], lo[0]);
+  to_tf32<X>(ld(qr + 8 * SA + 8 * kk), hi[1], lo[1]);
+  to_tf32<X>(ld(qr + 8 * kk + 4), hi[2], lo[2]);
+  to_tf32<X>(ld(qr + 8 * SA + 8 * kk + 4), hi[3], lo[3]);
+}
+
+// One KV tile's online softmax on this thread's score fragment `sc`
+// (rows qp, qp + 8; keys kp + 8 j and + 1): scales to base 2, masks (causal,
+// window, keys past S) unless the caller found every pair visible, and
+// turns the scores into p = exp2(s - m_new), updating m and this thread's
+// partial l; corr[r] = exp2(m_prev - m_new) is the factor on O's row r.
+template <bool MASK, int NK>
+__device__ __forceinline__ void online_softmax(float (&sc)[NK][4], float (&m)[2], float (&l)[2],
+                                               float (&corr)[2], int qp, int kp, int s_len, int window,
+                                               float scale2) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qp + 8 * r;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = kp + 8 * j + c;
+        float x = sc[j][2 * r + c] * scale2;
+        if (MASK && !(key <= row && key < s_len && (window <= 0 || row - key < window))) x = NEG_INF;
+        sc[j][2 * r + c] = x;
+        mx = fmaxf(mx, x);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx);
+    corr[r] = exp2f(m[r] - m_new);
+    m[r] = m_new;
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float p = exp2f(sc[j][2 * r + c] - m_new);
+        sc[j][2 * r + c] = p;
+        sum += p;
+      }
+    l[r] = l[r] * corr[r] + sum;
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(Smem<T, HD>::THREADS)
+flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+             T* __restrict__ o, int s_len, int h_q, int h_kv, float scale, int window) {
+  using M = Smem<T, HD>;
+  constexpr int BK = M::BK, SA = M::SA, WD = M::WD;
+  constexpr int NK = BK / 8;          // n8 tiles of the scores; k8 steps of P v
+  constexpr int ND = HD / WD / 8;     // a warp's k8 steps of q k^T; its n8 tiles of the output
+  constexpr int STEPS = divisor_upto(ND, CHAIN);
+  // Output n8 tiles per pass of P v: independent accumulators, as many as
+  // the registers left beside O allow.
+  constexpr int GD = divisor_upto(ND, 8);
+  constexpr bool X = exact_tf32<T>();
+  constexpr bool Q_REGS = HD / WD <= 64;
+  static_assert(M::BYTES <= SMEM_LIMIT, "mma::flash_kernel's tiles exceed shared memory");
+  static_assert(ND % STEPS == 0 && ND % GD == 0, "whole chains and passes");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+  const int warp = static_cast<int>(threadIdx.x) / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int rg = WD > 1 ? warp % 4 : warp;                // the warp's row group
+  const int d_off = WD > 1 ? (warp / 4) * (HD / WD) : 0;  // and its first column of d
+
+  // Block i takes query tile n_qt - 1 - i / (B * H) of (batch, head)
+  // i % (B * H): every (batch, head)'s heaviest tile first.
+  const int n_qt = (s_len + BQ - 1) / BQ;
+  const int n_bh = static_cast<int>(gridDim.x) / n_qt;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / n_bh) * BQ;
+  const int bh = static_cast<int>(blockIdx.x) % n_bh;
+  const int b = bh / h_q;
+  const int h = bh % h_q;
+  const int hk = h / (h_q / h_kv);
+  const size_t q_stride = static_cast<size_t>(h_q) * HD;    // between tokens
+  const size_t kv_stride = static_cast<size_t>(h_kv) * HD;
+  const T* qb = q + static_cast<size_t>(b) * s_len * q_stride + static_cast<size_t>(h) * HD;
+  const T* kb = k + static_cast<size_t>(b) * s_len * kv_stride + static_cast<size_t>(hk) * HD;
+  const T* vb = v + static_cast<size_t>(b) * s_len * kv_stride + static_cast<size_t>(hk) * HD;
+  T* ob = o + static_cast<size_t>(b) * s_len * q_stride + static_cast<size_t>(h) * HD;
+
+  // Keys [k_begin, k_end) hold every unmasked score of this query tile.
+  const int k_end = min(q0 + BQ, s_len);
+  const int k_begin = window > 0 ? (max(0, q0 - window + 1) / BK) * BK : 0;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+
+  load_rows<T, HD, BQ>(base, qb, q_stride, q0, s_len);
+  load_rows<T, HD, BK>(base + M::RING, kb, kv_stride, k_begin, s_len);
+  load_rows<T, HD, BK>(base + M::RING + M::KV, vb, kv_stride, k_begin, s_len);
+  tf32::cp_async_commit();
+
+  const int w0 = q0 + 16 * rg;   // the warp's first query
+  const int qp = w0 + g;         // this thread's rows: qp and qp + 8
+  const T* qr = reinterpret_cast<const T*>(smem) + (16 * rg + g) * SA + d_off + t4;
+  uint32_t qh[Q_REGS ? ND : 1][4], ql[Q_REGS ? ND : 1][4];
+  if constexpr (Q_REGS) {
+    tf32::cp_async_wait_all();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) q_fragment<T, SA>(qr, kk, qh[kk], ql[kk]);
+  }
+
+  float out[ND][4];   // O, unnormalised: rows g, g + 8 of the warp, columns d_off + 8 i + 2 t4, + 1
+#pragma unroll
+  for (int i = 0; i < ND; ++i) out[i][0] = out[i][1] = out[i][2] = out[i][3] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF};   // running max of the rows (base 2)
+  float l[2] = {0.0f, 0.0f};         // this thread's part of their sums
+  const float scale2 = scale * LOG2E;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_begin + t * BK;
+    if (t + 1 < n_tiles) {   // the next tile into the other stage
+      const uint32_t next = base + M::RING + ((t + 1) & 1) * M::STAGE;
+      load_rows<T, HD, BK>(next, kb, kv_stride, k0 + BK, s_len);
+      load_rows<T, HD, BK>(next + M::KV, vb, kv_stride, k0 + BK, s_len);
+    }
+    tf32::cp_async_commit();   // empty on the last tile, so that one group stays behind
+    tf32::cp_async_wait<1>();
+    __syncthreads();           // this tile's k, v have landed, from every thread
+    const T* ks = reinterpret_cast<const T*>(smem + M::RING + (t & 1) * M::STAGE);
+    const T* vs = ks + BK * SA;
+
+    // S = q k^T: NK n8 tiles of keys over the warp's ND k8 steps of d,
+    // STEPS at a time on the tensor core, then into the float32 sum.
+    // b = k[8 j + g][d_off + 8 kk + t4], k[8 j + g][d_off + 8 kk + t4 + 4].
+    float sc[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
+    const T* kr = ks + g * SA + d_off + t4;
+    // q's fragments in registers need compile-time indices, so the chunks
+    // unroll; streamed from shared memory they run one at a time, which
+    // keeps the loads of later chunks from piling up in registers beside O.
+#pragma unroll (Q_REGS ? ND / STEPS : 1)
+    for (int d0 = 0; d0 < ND; d0 += STEPS) {
+      float c[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.0f;
+#pragma unroll
+      for (int s = 0; s < STEPS; ++s) {
+        const int kk = d0 + s;
+        uint32_t ah[4], al[4];
+        if constexpr (Q_REGS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ah[e] = qh[kk][e];
+            al[e] = ql[kk][e];
+          }
+        } else {
+          q_fragment<T, SA>(qr, kk, ah, al);
+        }
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          uint32_t bh0, bl0, bh1, bl1;
+          to_tf32<X>(ld(kr + 8 * j * SA + 8 * kk), bh0, bl0);
+          to_tf32<X>(ld(kr + 8 * j * SA + 8 * kk + 4), bh1, bl1);
+          mma_x<X, X>(c[j], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] += c[j][e];
+    }
+    if constexpr (WD > 1) {
+      // The two warps of a row group add each other's partial scores: the
+      // same float32 sum in both, so both run the same softmax.
+      float* xs = reinterpret_cast<float*>(smem + M::XS);
+      float* mine = xs + warp * 32 * 4 * NK + lane;
+      const float* other = xs + (warp ^ 4) * 32 * 4 * NK + lane;
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[(4 * j + e) * 32] = sc[j][e];
+      asm volatile("bar.sync %0, 64;\n" :: "r"(1 + rg) : "memory");   // the row group's two warps
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] += other[(4 * j + e) * 32];
+    }
+
+    float corr[2];
+    if (k0 + BK - 1 <= w0 && k0 + BK <= s_len && (window <= 0 || w0 + 15 - k0 < window))
+      online_softmax<false, NK>(sc, m, l, corr, qp, k0 + 2 * t4, s_len, window, scale2);
+    else
+      online_softmax<true, NK>(sc, m, l, corr, qp, k0 + 2 * t4, s_len, window, scale2);
+
+    // P as the A fragment of k8 step j of P v: k index t4 is key 8 j + 2 t4
+    // and t4 + 4 is key 8 j + 2 t4 + 1, so a = (sc[j][0], sc[j][2],
+    // sc[j][1], sc[j][3]).  For bfloat16, p is rounded to v's type first.
+    uint32_t ph[NK][4], pl[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      const float pa[4] = {sc[j][0], sc[j][2], sc[j][1], sc[j][3]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (X)
+          to_tf32<X>(__bfloat162float(__float2bfloat16(pa[e])), ph[j][e], pl[j][e]);
+        else
+          to_tf32<X>(pa[e], ph[j][e], pl[j][e]);
+      }
+    }
+
+    // O = O * corr + P v, GD output n8 tiles a pass, each on zeroed
+    // accumulators over the tile's NK k8 steps.
+    // b = v[8 j + 2 t4][d_off + 8 i + g], v[8 j + 2 t4 + 1][d_off + 8 i + g].
+    const T* vr = vs + 2 * t4 * SA + d_off + g;
+#pragma unroll
+    for (int i0 = 0; i0 < ND; i0 += GD) {
+      float acc[GD][4];
+#pragma unroll
+      for (int i = 0; i < GD; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int i = 0; i < GD; ++i) {
+          uint32_t bh0, bl0, bh1, bl1;
+          to_tf32<X>(ld(vr + 8 * j * SA + 8 * (i0 + i)), bh0, bl0);
+          to_tf32<X>(ld(vr + (8 * j + 1) * SA + 8 * (i0 + i)), bh1, bl1);
+          mma_x<X, X>(acc[i], ph[j], pl[j], bh0, bh1, bl0, bl1);
+        }
+#pragma unroll
+      for (int i = 0; i < GD; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) out[i0 + i][e] = out[i0 + i][e] * corr[e / 2] + acc[i][e];
+    }
+    __syncthreads();   // every warp is done with this stage (and the scores) before they are refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const float inv0 = 1.0f / fmaxf(l[0], 1e-30f);
+  const float inv1 = 1.0f / fmaxf(l[1], 1e-30f);
+#pragma unroll
+  for (int i = 0; i < ND; ++i) {
+    const int c = d_off + 8 * i + 2 * t4;
+    if (qp < s_len) store2(ob + static_cast<size_t>(qp) * q_stride + c, out[i][0] * inv0, out[i][1] * inv0);
+    if (qp + 8 < s_len)
+      store2(ob + static_cast<size_t>(qp + 8) * q_stride + c, out[i][2] * inv1, out[i][3] * inv1);
+  }
+}
+
+template <typename T, int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int b, int s, int h, int kv,
+           float scale, int window, cudaStream_t stream) {
+  if (!aligned16({q, k, v, o})) return static_cast<int>(cudaErrorMisalignedAddress);
+  const long long blocks = static_cast<long long>((s + BQ - 1) / BQ) * b * h;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = Smem<T, HD>::BYTES;
+  static unsigned configured = 0;
+  cudaError_t err = allow_dynamic_smem(reinterpret_cast<const void*>(flash_kernel<T, HD>), smem, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_kernel<T, HD><<<static_cast<unsigned>(blocks), Smem<T, HD>::THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), s,
+      h, kv, scale, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace mma
+
+// ---------------------------------------------------------------------------
+// wgmma route: bfloat16, hd in {64, 96, 128, 256}.  See the note at the top.
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -725,10 +898,7 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int s, int h,
            int kv, float scale, int window, cudaStream_t stream) {
-  // cp.async copies 16-byte chunks: rows are hd * 2 bytes apart, so the
-  // bases must be 16-byte aligned (the wrapper checks this too).
-  for (const void* ptr : {q, k, v, static_cast<const void*>(o)})
-    if (reinterpret_cast<uintptr_t>(ptr) % 16) return static_cast<int>(cudaErrorMisalignedAddress);
+  if (!aligned16({q, k, v, o})) return static_cast<int>(cudaErrorMisalignedAddress);
   const long long blocks = static_cast<long long>((s + BQ - 1) / BQ) * b * h;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   constexpr size_t smem = Smem<HD>::BYTES;
@@ -748,26 +918,61 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int s, i
 }  // namespace
 
 // out (b, s, h, hd) = causal attention of q (b, s, h, hd) over k, v
-// (b, s, kv, hd), all contiguous, with kv dividing h; window > 0 keeps only
-// the last `window` keys of each query.  hd is 16, 32, 64, 96, 128 or 256;
-// is_bf16 picks bfloat16 (1) or float32 (0) for every tensor.  bfloat16 at
-// hd 64, 96, 128 and 256 takes the tensor-core kernel and needs
-// 16-byte-aligned bases; everything else the CUDA-core kernel.  Launches on
-// `stream` without synchronising and returns the CUDA error of the launch (0
-// when it was accepted).
+// (b, s, kv, hd), all contiguous and 16-byte-aligned, with kv dividing h;
+// window > 0 keeps only the last `window` keys of each query.  hd is 16, 32,
+// 64, 96, 128 or 256; is_bf16 picks bfloat16 (1) or float32 (0) for every
+// tensor.  bfloat16 at hd 64, 96, 128 and 256 takes the wgmma kernel;
+// everything else the split-TF32 mma.sync kernel.  Launches on `stream`
+// without synchronising and returns the CUDA error of the launch (0 when it
+// was accepted).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int b, int s, int h, int kv, int hd,
                                float scale, int window, int is_bf16,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!is_bf16) return dispatch<float>(q, k, v, o, b, s, h, kv, hd, scale, window, st);
+  if (is_bf16) {
+    switch (hd) {
+      case 16: return mma::launch<__nv_bfloat16, 16>(q, k, v, o, b, s, h, kv, scale, window, st);
+      case 32: return mma::launch<__nv_bfloat16, 32>(q, k, v, o, b, s, h, kv, scale, window, st);
+      case 64: return tc::launch<64>(q, k, v, o, b, s, h, kv, scale, window, st);
+      case 96: return tc::launch<96>(q, k, v, o, b, s, h, kv, scale, window, st);
+      case 128: return tc::launch<128>(q, k, v, o, b, s, h, kv, scale, window, st);
+      case 256: return tc::launch<256>(q, k, v, o, b, s, h, kv, scale, window, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (hd) {
-    case 16: return launch<__nv_bfloat16, 16>(q, k, v, o, b, s, h, kv, scale, window, st);
-    case 32: return launch<__nv_bfloat16, 32>(q, k, v, o, b, s, h, kv, scale, window, st);
-    case 64: return tc::launch<64>(q, k, v, o, b, s, h, kv, scale, window, st);
-    case 96: return tc::launch<96>(q, k, v, o, b, s, h, kv, scale, window, st);
-    case 128: return tc::launch<128>(q, k, v, o, b, s, h, kv, scale, window, st);
-    case 256: return tc::launch<256>(q, k, v, o, b, s, h, kv, scale, window, st);
+    case 16: return mma::launch<float, 16>(q, k, v, o, b, s, h, kv, scale, window, st);
+    case 32: return mma::launch<float, 32>(q, k, v, o, b, s, h, kv, scale, window, st);
+    case 64: return mma::launch<float, 64>(q, k, v, o, b, s, h, kv, scale, window, st);
+    case 96: return mma::launch<float, 96>(q, k, v, o, b, s, h, kv, scale, window, st);
+    case 128: return mma::launch<float, 128>(q, k, v, o, b, s, h, kv, scale, window, st);
+    case 256: return mma::launch<float, 256>(q, k, v, o, b, s, h, kv, scale, window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Dynamic shared memory (bytes) of the kernel that a call at head_dim hd
+// and type is_bf16 launches; -1 for another hd.
+extern "C" int flash_attention_smem(int hd, int is_bf16) {
+  if (is_bf16) {
+    switch (hd) {
+      case 16: return mma::Smem<__nv_bfloat16, 16>::BYTES;
+      case 32: return mma::Smem<__nv_bfloat16, 32>::BYTES;
+      case 64: return static_cast<int>(tc::Smem<64>::BYTES);
+      case 96: return static_cast<int>(tc::Smem<96>::BYTES);
+      case 128: return static_cast<int>(tc::Smem<128>::BYTES);
+      case 256: return static_cast<int>(tc::Smem<256>::BYTES);
+      default: return -1;
+    }
+  }
+  switch (hd) {
+    case 16: return mma::Smem<float, 16>::BYTES;
+    case 32: return mma::Smem<float, 32>::BYTES;
+    case 64: return mma::Smem<float, 64>::BYTES;
+    case 96: return mma::Smem<float, 96>::BYTES;
+    case 128: return mma::Smem<float, 128>::BYTES;
+    case 256: return mma::Smem<float, 256>::BYTES;
+    default: return -1;
   }
 }

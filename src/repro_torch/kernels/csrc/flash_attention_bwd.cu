@@ -71,9 +71,10 @@
 //    TF32 operands with float32 accumulators.  An operand that is not exact
 //    in TF32 (float32 inputs; p and ds always) is split into a high and a
 //    low part and takes three mmas, hi*hi + hi*lo + lo*hi (tf32.cuh, shared
-//    with wkv6.cu); a bfloat16 input is exact, so a product of two takes
-//    one mma and one with p or ds two.  The CUDA cores' float32 FMAs, fed
-//    one shared-memory load per one or two FMAs, were the old ceiling.
+//    with wkv6.cu and flash_attention.cu); a bfloat16 input is exact, so a
+//    product of two takes one mma and one with p or ds two.  The CUDA
+//    cores' float32 FMAs, fed one shared-memory load per one or two FMAs,
+//    were the old ceiling.
 //  - Precision: the tensor core cuts the low bits of each sum it forms, so
 //    every product adds its tensor-core accumulators into a float32 sum
 //    every CHAIN k8 steps.  In (d), do v^T runs on the FP64 tensor cores
@@ -115,13 +116,16 @@
 
 #include <cstddef>
 #include <cstdint>
-#include <type_traits>
 
 #include "tf32.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using tf32::divisor_upto;
+using tf32::exact_tf32;
+using tf32::ld;
+using tf32::to_tf32;
 
 constexpr float NEG_INF = -1e30f;
 constexpr int THREADS = 256;
@@ -158,21 +162,6 @@ __host__ __device__ constexpr int row_stride() {
   return HD + 16 / static_cast<int>(sizeof(T));
 }
 
-// The largest divisor of n that is at most cap: k8 steps per chunk.
-__host__ __device__ constexpr int chunk_steps(int n, int cap) {
-  int s = cap < n ? cap : n;
-  while (n % s) --s;
-  return s;
-}
-
-template <typename T>
-__host__ __device__ constexpr bool exact_tf32() {
-  return std::is_same<T, bf16>::value;
-}
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
-
 __device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f32(bf16* p, float v) { *p = __float2bfloat16(v); }
 
@@ -185,17 +174,6 @@ __device__ __forceinline__ bool visible(int qp, int kp, int s_len, int window) {
 // then the tile pair needs no mask.
 __device__ __forceinline__ bool all_visible(int q0, int nq, int k0, int nk, int s_len, int window) {
   return k0 + nk - 1 <= q0 && q0 + nq - 1 < s_len && (window <= 0 || q0 + nq - 1 - k0 < window);
-}
-
-// x as a TF32 operand: hi and lo parts, or x itself where it is exact.
-template <bool EXACT>
-__device__ __forceinline__ void to_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  if constexpr (EXACT) {
-    hi = __float_as_uint(x);
-    lo = 0;
-  } else {
-    tf32::split(x, hi, lo);
-  }
 }
 
 // Accumulators of one product of NT n8 tiles: SETS for the hi*hi mmas,
@@ -267,7 +245,7 @@ __device__ __forceinline__ void rows_by_rows(float (&sum1)[NT][4], float (&sum2)
                                              int lane) {
   constexpr int SA = row_stride<T, HD>();
   constexpr int SETS = Acc<NT>::SETS;
-  constexpr int STEPS = chunk_steps(HD / 8, CHAIN * SETS);
+  constexpr int STEPS = divisor_upto(HD / 8, CHAIN * SETS);   // k8 steps per chunk
   const int g = lane / 4, t4 = lane % 4;
   const int ao = (m0 + g) * SA + t4, bo = (n0 + g) * SA + t4;
   Acc<NT> acc1, acc2;
@@ -342,7 +320,7 @@ __device__ __forceinline__ void rows_by_cols(float (&sum)[NT][4], const float* p
   constexpr int SA = row_stride<T, HD>();
   constexpr bool X = exact_tf32<T>();
   constexpr int SETS = Acc<NT>::SETS;
-  constexpr int STEPS = chunk_steps(R / 8, CHAIN * SETS);
+  constexpr int STEPS = divisor_upto(R / 8, CHAIN * SETS);   // k8 steps per chunk
   const int g = lane / 4, t4 = lane % 4;
   const float* pr = p + (m0 + g) * SP + 2 * t4;
   const T* xr = x + 2 * t4 * SA + n0 + g;

@@ -7,11 +7,14 @@
 // mma.sync.m16n8k8 with float32 accumulators (lo*lo, below 2^-21 of the
 // product, is dropped).  A bfloat16 value widened to float32 is exact in
 // TF32: its lo part is 0 and its products need one mma per other part.
+// flash_attention.cu includes it too.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace tf32 {
 
@@ -21,6 +24,34 @@ namespace tf32 {
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = __float_as_uint(x) & 0xFFFFE000u;
   lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// Whether T's values are exact TF32 operands (bfloat16, widened) or are
+// split (float32).
+template <typename T>
+__host__ __device__ constexpr bool exact_tf32() {
+  return std::is_same<T, __nv_bfloat16>::value;
+}
+
+// x as a TF32 operand: hi and lo parts, or x itself where it is exact.
+template <bool EXACT>
+__device__ __forceinline__ void to_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (EXACT) {
+    hi = __float_as_uint(x);
+    lo = 0;
+  } else {
+    split(x, hi, lo);
+  }
+}
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// The largest divisor of n that is at most cap.
+__host__ __device__ constexpr int divisor_upto(int n, int cap) {
+  int d = cap < n ? cap : n;
+  while (n % d) --d;
+  return d;
 }
 
 // c += a * b, m16n8k8, TF32 operands, float32 accumulators.

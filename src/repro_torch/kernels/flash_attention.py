@@ -10,13 +10,15 @@ there is no transposing, head-repeating or padding wrapper and no block-size
 argument.  Positions are ``0 .. S-1`` for queries and keys alike, as on the
 prefill and full-forward paths.
 
-The source holds two kernels, and ``route`` says which one a call takes, as
-the C dispatch does: bfloat16 at head_dim 64, 96, 128 or 256 runs both
-products on the tensor cores (wgmma; 96 on 32-column, 64-byte-swizzle
-panels, the others on 64-column, 128-byte ones); bfloat16 at 16 or 32 and
-every float32 shape run float32 FMAs on the CUDA cores (float32 on the
-tensor cores would be TF32).  The routing is fixed; neither kernel stands
-in for the other, and no input is padded to another head_dim.
+The source holds two kernels, both on the tensor cores, and ``route`` says
+which one a call takes, as the C dispatch does: bfloat16 at head_dim 64,
+96, 128 or 256 runs both products on ``wgmma`` (96 on 32-column,
+64-byte-swizzle panels, the others on 64-column, 128-byte ones); every
+float32 shape and bfloat16 at 16 or 32 run them on TF32 ``mma.sync`` with
+every inexact operand split into a high and a low part, which keeps float32
+accuracy.  The routing is fixed; neither kernel stands in for the other,
+and no input is padded to another head_dim.  Both copy 16-byte chunks with
+``cp.async`` and take 16-byte-aligned tensors only.
 
 The gradient is a kernel too: ``causal_attention`` is the entry of the
 autograd function ``_FlashAttention`` whenever a gradient is asked for, and
@@ -41,8 +43,8 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)   # the kernels' instantiations
-TENSOR_CORE_HEAD_DIMS = (64, 96, 128, 256)   # bfloat16 ones on the tensor cores
-_MAX_GRID_Y = 65535                  # B * H blocks on the CUDA-core kernel's gridDim.y
+TENSOR_CORE_HEAD_DIMS = (64, 96, 128, 256)   # bfloat16 ones on wgmma
+_MAX_GRID_Y = 65535                  # B * H blocks on the backward kernels' gridDim.y
 
 # The backward's dK/dV work list (``dkdv_work``): one row per item, these
 # columns, int32.  An item is the (query tile x query head) steps
@@ -190,23 +192,22 @@ def causal_attention_plain(
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernel a CUDA call of ``dtype`` and ``head_dim`` launches:
-    ``"tensor-core"`` or ``"cuda-core"``, as ``flash_attention.cu``'s
-    dispatch decides."""
+    ``"tensor-core"`` (bfloat16 ``wgmma``) or ``"tf32-mma"`` (split-TF32
+    ``mma.sync``), as ``flash_attention.cu``'s dispatch decides."""
     if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS:
         return "tensor-core"
-    return "cuda-core"
+    return "tf32-mma"
 
 
-def check_alignment(kernel_route: str, *tensors: torch.Tensor) -> None:
-    """The tensor-core kernel copies 16-byte chunks with ``cp.async``, so it
-    takes only tensors whose data starts on a 16-byte boundary (a view into
-    another tensor may not); raises ``ValueError`` otherwise."""
-    if kernel_route != "tensor-core":
-        return
+def check_alignment(*tensors: torch.Tensor) -> None:
+    """Every flash_attention kernel, forward and backward, copies 16-byte
+    chunks with ``cp.async``, so it takes only tensors whose data starts on
+    a 16-byte boundary (a view into another tensor may not); raises
+    ``ValueError`` otherwise."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(
-                f"the tensor-core flash_attention kernel takes 16-byte-aligned "
+                f"the flash_attention kernels take 16-byte-aligned "
                 f"tensors; got data at {t.data_ptr():#x}"
             )
 
@@ -298,7 +299,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, wi
         return causal_attention_plain(q, k, v, scale=scale, window=window)
     _check_kernel_shape(q, k, v)
     b, s, h, hd = q.shape
-    check_alignment(route(q.dtype, hd), q, k, v)
+    check_alignment(q, k, v)
     kernel = _kernel()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -347,12 +348,7 @@ def causal_attention_bwd(
     _check_kernel_shape(q, k, v)
     if not (o.is_contiguous() and do.is_contiguous()):
         raise ValueError("the flash_attention backward kernel takes contiguous o and do")
-    for t in (q, k, v, o, do):
-        if t.data_ptr() % 16:
-            raise ValueError(
-                f"the flash_attention backward kernels take 16-byte-aligned tensors; "
-                f"got data at {t.data_ptr():#x}"
-            )
+    check_alignment(q, k, v, o, do)
     b, s, h, hd = q.shape
     kv = k.shape[2]
     kernel = _bwd_kernel()
@@ -408,8 +404,8 @@ def causal_attention(
     dividing H; ``window`` > 0 keeps the last ``window`` keys of each query.
     Returns (B, S, H, hd) in q's dtype.
 
-    On CUDA tensors (contiguous, float32 or bfloat16, hd in ``HEAD_DIMS``;
-    16-byte-aligned on the tensor-core route) this launches the kernel that
+    On CUDA tensors (contiguous, float32 or bfloat16, hd in ``HEAD_DIMS``,
+    16-byte-aligned) this launches the kernel that
     ``route`` names on the current stream and raises if it cannot; on CPU
     tensors it computes ``causal_attention_plain``.  When autograd records
     (grad mode on and an input requiring grad) the call goes through

@@ -2,7 +2,9 @@
 
 Port of the JAX package's ``launch/train.py``: AdamW with WSD (minicpm) or
 cosine, gradient-accumulation microbatches, synthetic data, float32
-parameters, on the GPU unless ``--device cpu`` is given.  Attention and its
+parameters, on the GPU unless ``--device cpu`` is given.  ``--checkpoint``
+writes the reference's file: its keys, shapes and values, layers stacked by
+group position (``training/checkpoint.py::save_params``).  Attention and its
 gradient run through the hand-written ``flash_attention`` kernels on the
 card; rwkv6 waits for a ``wkv6`` backward kernel there (its wrapper raises)
 and trains on the host through the plain recurrence.
@@ -22,7 +24,7 @@ from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import batches_for_arch
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import init_params
-from repro_torch.training.checkpoint import save
+from repro_torch.training.checkpoint import save_params
 from repro_torch.training.optimizer import AdamWConfig, adamw_init
 from repro_torch.training.schedule import cosine_schedule, wsd_schedule
 from repro_torch.training.train_loop import TrainConfig, make_train_step
@@ -81,7 +83,7 @@ def main(argv: Sequence[str] | None = None) -> None:
             )
     print(f"loss: {first:.4f} -> {last:.4f}")
     if args.checkpoint:
-        save(args.checkpoint, params, {"arch": cfg.name, "steps": args.steps})
+        save_params(args.checkpoint, cfg, params, {"arch": cfg.name, "steps": args.steps})
         print(f"checkpoint saved to {args.checkpoint}")
 
 

@@ -113,34 +113,53 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(q, k, v, error):
 @pytest.mark.parametrize("head_dim", fa_mod.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_route_puts_bf16_at_64_96_128_256_on_the_tensor_cores(dtype, head_dim):
-    want = "tensor-core" if dtype == torch.bfloat16 and head_dim in (64, 96, 128, 256) else "cuda-core"
+    want = "tensor-core" if dtype == torch.bfloat16 and head_dim in (64, 96, 128, 256) else "tf32-mma"
     assert fa_mod.route(dtype, head_dim) == want
+
+
+def _c_switches():
+    """The cases of ``flash_attention.cu``'s entry: {(is_bf16, hd): the
+    launch it returns}, from its bfloat16 switch and its float32 one."""
+    src = (fa_mod.build.CSRC_DIR / "flash_attention.cu").read_text()
+    entry = src[src.index('extern "C" int flash_attention('):]
+    entry = entry[: entry.index('extern "C" int flash_attention_smem(')]
+    bf16_part = entry[entry.index("if (is_bf16) {"):]
+    bf16_switch = bf16_part[: bf16_part.index("default:")]
+    f32_switch = bf16_part[bf16_part.index("default:") + 1:]
+    f32_switch = f32_switch[f32_switch.index("switch (hd)"):]
+    f32_switch = f32_switch[: f32_switch.index("default:")]
+    cases = {}
+    for is_bf16, part in ((1, bf16_switch), (0, f32_switch)):
+        for hd, call in re.findall(r"case (\d+): return (\w+::launch<[^>]*>)", part):
+            cases[is_bf16, int(hd)] = call
+    return cases
 
 
 def test_head_dims_mirror_the_c_dispatch():
     """``HEAD_DIMS`` are the cases of both of ``flash_attention.cu``'s
-    switches: the float32 ``dispatch`` and the bfloat16 one, where 96 goes
-    to the tensor-core ``tc::launch``."""
+    switches, the float32 one and the bfloat16 one, where 96 goes to the
+    wgmma ``tc::launch``; the CUDA-core kernel and its dispatch are gone."""
+    cases = _c_switches()
     src = (fa_mod.build.CSRC_DIR / "flash_attention.cu").read_text()
-    dispatch = src[src.index("int dispatch("):]
-    dispatch = dispatch[: dispatch.index("default:")]
-    entry = src[src.index('extern "C" int flash_attention('):]
-    bf16_switch = entry[entry.index("switch (hd)"):]
-    assert tuple(int(d) for d in re.findall(r"case (\d+): return launch<T, \1>", dispatch)) == fa_mod.HEAD_DIMS
-    assert tuple(int(d) for d in re.findall(r"case (\d+):", bf16_switch)) == fa_mod.HEAD_DIMS
-    assert "case 96: return tc::launch<96>" in bf16_switch
+    for is_bf16 in (0, 1):
+        assert tuple(hd for b, hd in cases if b == is_bf16) == fa_mod.HEAD_DIMS
+    assert cases[1, 96] == "tc::launch<96>"
     assert "launch<__nv_bfloat16, 96>" not in src
+    assert "int dispatch(" not in src and not re.search(r"(?<![:\w])launch<(T|float|__nv_bfloat16), \w+>\(", src)
 
 
 def test_route_mirrors_the_c_dispatch():
-    """The head dims that ``flash_attention.cu``'s bfloat16 switch sends to
-    ``tc::launch`` are ``TENSOR_CORE_HEAD_DIMS``; float32 never goes there."""
-    src = (fa_mod.build.CSRC_DIR / "flash_attention.cu").read_text()
-    entry = src[src.index('extern "C" int flash_attention('):]
-    bf16_switch = entry[entry.index("switch (hd)"):]
-    tc_dims = tuple(int(d) for d in re.findall(r"case (\d+): return tc::launch<\1>", bf16_switch))
+    """For every (dtype, head_dim) the C entry launches the kernel that
+    ``route`` names: ``tc::launch`` (wgmma) for "tensor-core", the
+    split-TF32 ``mma::launch`` of that type and head_dim for "tf32-mma";
+    float32 never goes to wgmma."""
+    cases = _c_switches()
+    for dtype, is_bf16, ctype in ((torch.float32, 0, "float"), (torch.bfloat16, 1, "__nv_bfloat16")):
+        for hd in fa_mod.HEAD_DIMS:
+            want = f"tc::launch<{hd}>" if fa_mod.route(dtype, hd) == "tensor-core" else f"mma::launch<{ctype}, {hd}>"
+            assert cases[is_bf16, hd] == want, (dtype, hd)
+    tc_dims = tuple(hd for (b, hd), call in cases.items() if call.startswith("tc::"))
     assert tc_dims == fa_mod.TENSOR_CORE_HEAD_DIMS
-    assert "if (!is_bf16) return dispatch<float>" in entry
 
 
 def _misaligned(shape, dtype):
@@ -151,20 +170,23 @@ def _misaligned(shape, dtype):
 
 @pytest.mark.parametrize("which", ["q", "k", "v"])
 def test_alignment_check_rejects_a_misaligned_view_on_the_tensor_core_route(which):
-    for hd in (64, 96):
-        assert fa_mod.route(torch.bfloat16, hd) == "tensor-core"
-        tensors = {name: torch.zeros(1, 4, 2, hd, dtype=torch.bfloat16) for name in "qkv"}
-        tensors[which] = _misaligned((1, 4, 2, hd), torch.bfloat16)
+    """Both routes copy 16-byte chunks with cp.async: a misaligned q, k or
+    v is refused on the wgmma route and on the split-TF32 one."""
+    for dtype, hd, want in ((torch.bfloat16, 64, "tensor-core"), (torch.bfloat16, 96, "tensor-core"),
+                            (torch.float32, 64, "tf32-mma"), (torch.bfloat16, 32, "tf32-mma")):
+        assert fa_mod.route(dtype, hd) == want
+        tensors = {name: torch.zeros(1, 4, 2, hd, dtype=dtype) for name in "qkv"}
+        tensors[which] = _misaligned((1, 4, 2, hd), dtype)
         assert tensors[which].is_contiguous() and tensors[which].data_ptr() % 16
         with pytest.raises(ValueError, match="16-byte-aligned"):
-            fa_mod.check_alignment(fa_mod.route(torch.bfloat16, hd), *tensors.values())
-        fa_mod.check_alignment("cuda-core", *tensors.values())   # reads element by element
+            fa_mod.check_alignment(*tensors.values())
 
 
 def test_alignment_check_takes_aligned_tensors():
-    q = torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16)
-    assert q.data_ptr() % 16 == 0
-    fa_mod.check_alignment("tensor-core", q, q, q)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros(1, 4, 2, 64, dtype=dtype)
+        assert q.data_ptr() % 16 == 0
+        fa_mod.check_alignment(q, q, q)
 
 
 def test_library_path_is_under_the_checkout_build_dir():
@@ -204,13 +226,13 @@ def test_cuda_kernel_matches_plain_version(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain_version_at_head_dim_96(dtype):
-    """phi-3-vision's head_dim, bfloat16 on the tensor-core route and
-    float32 on the CUDA cores: its path shape's heads, global and windowed,
+    """phi-3-vision's head_dim, bfloat16 on the wgmma route and float32 on
+    the split-TF32 one: its path shape's heads, global and windowed,
     at one token, a ragged tile, a length past several tiles, GQA, and a
     ragged length under a window smaller than a tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    assert fa_mod.route(getattr(torch, dtype), 96) == ("tensor-core" if dtype == "bfloat16" else "cuda-core")
+    assert fa_mod.route(getattr(torch, dtype), 96) == ("tensor-core" if dtype == "bfloat16" else "tf32-mma")
     for b, s, h, kv, window in [
         (1, 1, 32, 32, 0), (2, 33, 4, 2, 0), (1, 700, 32, 32, 0), (2, 300, 8, 8, 64),
         (2, 256, 8, 2, 0), (1, 2047, 4, 1, 17),

@@ -60,8 +60,8 @@ def _inputs(b, s, h, kv, hd, dtype, seed):
 
 
 def _rel(got, want) -> float:
-    got = np.asarray(got.float() if isinstance(got, torch.Tensor) else got.astype(jnp.float32), np.float64)
-    want = np.asarray(want.float() if isinstance(want, torch.Tensor) else want.astype(jnp.float32), np.float64)
+    got = np.asarray(got.float().cpu() if isinstance(got, torch.Tensor) else got.astype(jnp.float32), np.float64)
+    want = np.asarray(want.float().cpu() if isinstance(want, torch.Tensor) else want.astype(jnp.float32), np.float64)
     return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
 
 

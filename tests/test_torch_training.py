@@ -243,6 +243,83 @@ def test_checkpoint_roundtrip(tmp_path):
     assert "['layers'][0]['attn']['wq']" in keys and len(keys) == len(leaves_with_paths(params))
 
 
+# llama4's reduced config stacks 2 layers a group (an MoE layer every
+# second one), gemma3-1b's 1: the two sides of stack_layers.
+CKPT_ARCHS = ["llama4-maverick-400b-a17b", "gemma3-1b"]
+
+
+def _ref_params(arch, jitter_seed):
+    """The reference's reduced parameters, every leaf moved by seeded noise."""
+    rng = np.random.default_rng(jitter_seed)
+    jparams = ref_tf.init_params(ref_get_arch(arch).reduced(), jax.random.PRNGKey(0), dtype=jnp.float32)
+    return jax.tree.map(lambda a: a + rng.standard_normal(a.shape, dtype=np.float32), jparams)
+
+
+def _ref_leaves(tree):
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {jax.tree_util.keystr(path): np.asarray(leaf) for path, leaf in flat}
+
+
+@pytest.mark.parametrize("arch", CKPT_ARCHS)
+def test_port_checkpoint_restores_with_the_reference(tmp_path, arch):
+    """``save_params`` writes the reference's file: the reference's
+    ``restore`` reads it into its ``init_params`` tree, and every leaf
+    equals the port's parameter it stacks."""
+    from repro.training import checkpoint as ref_ckpt
+
+    cfg = get_arch(arch).reduced()
+    assert cfg.n_groups == 2
+    params = init_params(cfg, torch.Generator().manual_seed(5), device=CPU, dtype=torch.float32)
+    path = str(tmp_path / "ckpt")
+    checkpoint.save_params(path, cfg, params, {"arch": cfg.name})
+    like = ref_tf.init_params(ref_get_arch(arch).reduced(), jax.random.PRNGKey(1), dtype=jnp.float32)
+    got = _ref_leaves(ref_ckpt.restore(path, like))
+    assert set(np.load(path + ".npz").files) == set(got) == set(_ref_leaves(like))
+    back = params_from_jax(cfg, ref_ckpt.restore(path, like))
+    for (p1, want), (p2, leaf) in zip(leaves_with_paths(params), leaves_with_paths(back)):
+        assert p1 == p2
+        torch.testing.assert_close(leaf, want, rtol=0, atol=0)
+    for key, leaf in leaves_with_paths(checkpoint.stack_layers(cfg, params)):
+        np.testing.assert_array_equal(got[key], leaf.numpy(), err_msg=key)
+
+
+@pytest.mark.parametrize("arch", CKPT_ARCHS)
+def test_reference_checkpoint_restores_in_the_port(tmp_path, arch):
+    """The reference's ``save`` of its parameters, read by
+    ``restore_params``, equals ``params_from_jax`` of them, leaf by leaf,
+    bfloat16 leaves of ``like`` included."""
+    from repro.training import checkpoint as ref_ckpt
+
+    cfg = get_arch(arch).reduced()
+    jparams = _ref_params(arch, 7)
+    path = str(tmp_path / "ckpt")
+    ref_ckpt.save(path, jparams, {"arch": cfg.name})
+    like = init_params(cfg, torch.Generator().manual_seed(2), device=CPU, dtype=torch.float32)
+    like["final_norm"] = like["final_norm"].bfloat16()
+    got = checkpoint.restore_params(path, cfg, like)
+    want = params_from_jax(cfg, jparams)
+    want["final_norm"] = want["final_norm"].bfloat16()
+    assert checkpoint.load_metadata(path) == {"arch": cfg.name}
+    got_leaves, want_leaves = leaves_with_paths(got), leaves_with_paths(want)
+    assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
+    for (path_, a), (_, b) in zip(got_leaves, want_leaves):
+        assert a.dtype == b.dtype, path_
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_stack_layers_inverts(tmp_path):
+    cfg = get_arch("llama4-maverick-400b-a17b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(4), device=CPU, dtype=torch.float32)
+    stacked = checkpoint.stack_layers(cfg, params)
+    assert len(stacked["groups"]) == cfg.group_size == 2 and "layers" not in stacked
+    assert stacked["groups"][1]["attn"]["wq"].shape[0] == cfg.n_groups
+    torch.testing.assert_close(stacked["groups"][1]["attn"]["wq"][1], params["layers"][3]["attn"]["wq"])
+    back = checkpoint.unstack_layers(cfg, stacked)
+    for (p1, a), (p2, b) in zip(leaves_with_paths(params), leaves_with_paths(back)):
+        assert p1 == p2
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_checkpoint_metadata_and_shape_check(tmp_path):
     path = str(tmp_path / "ckpt")
     checkpoint.save(path, {"x": torch.ones(3)}, {"k": "v"})
@@ -351,6 +428,18 @@ def test_train_cli_on_the_host(tmp_path):
     assert lines[-2].startswith("loss: ") and lines[-1] == f"checkpoint saved to {ckpt}"
     assert checkpoint.load_metadata(ckpt) == {"arch": "minicpm-2b", "steps": 4}
     assert "import jax" not in Path(train_cli.__file__).read_text()
+    # The file is the reference's: its restore reads it, and so does the
+    # port's, to the same values.
+    from repro.training import checkpoint as ref_ckpt
+
+    cfg = get_arch("minicpm-2b").reduced()
+    like = ref_tf.init_params(ref_get_arch("minicpm-2b").reduced(), jax.random.PRNGKey(0), dtype=jnp.float32)
+    ref_restored = params_from_jax(cfg, ref_ckpt.restore(ckpt, like))
+    port_like = init_params(cfg, torch.Generator().manual_seed(0), device=CPU, dtype=torch.float32)
+    restored = checkpoint.restore_params(ckpt, cfg, port_like)
+    for (p1, a), (p2, b) in zip(leaves_with_paths(restored), leaves_with_paths(ref_restored)):
+        assert p1 == p2
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_train_cli_needs_a_named_device_without_a_card():

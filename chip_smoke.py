@@ -8,7 +8,8 @@ and prints no result line):
 
 1. device: the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build: every CUDA source of the port (``src/repro_torch/kernels/csrc``:
-   block_matmul, flash_attention, its backward flash_attention_bwd, wkv6),
+   block_matmul, flash_attention, its backward flash_attention_bwd, wkv6,
+   its backward wkv6_bwd),
    compiled in parallel from the checkout into ``build/repro_torch``, with
    each kernel's registers and spills; then the count of tensor-core
    instructions in the SASS of the block_matmul and flash_attention
@@ -22,7 +23,8 @@ and prints no result line):
    every instantiation of the backward's product kernels (stats, dK/dV,
    dQ) must have ``HMMA`` and every dQ one ``DMMA``; the backward's
    kernels must not spill, and each one's shared memory at every head_dim
-   and type must fit 227 KB;
+   and type must fit 227 KB; wkv6_bwd's kernels (checkpoints, dv, dr/dk/dw)
+   likewise;
 3. kernel vs plain: each kernel's wrapper on the card at the reference's
    test shapes and ragged ones (``block_matmul`` also at the serving path's
    shapes and, in bfloat16, at ragged tensor-core tiles and 4096^3), held
@@ -62,18 +64,27 @@ and prints no result line):
    row within ``GRAD_ROW_TOL``, a second call bitwise equal to the first,
    and a planted one-tile fault in dk past the limit; at the train shapes
    also the kernel's and the float32 plain version's row errors against
-   the plain version in float64, and the same for the forward kernel;
+   the plain version in float64, and the same for the forward kernel; then
+   wkv6's backward kernels against ``wkv6_bwd_plain`` at the wkv6 test and
+   ragged shapes and at rwkv6-7b's train shape (2, 2048, 64, 64), float32
+   and bfloat16, at mild and strong decays, from a zero state and from a
+   random one with a final-state gradient: every dr, dk, dv, dw row (du
+   and d(state) likewise) within ``GRAD_ROW_TOL``, all finite, a second
+   call bitwise equal, a planted one-chunk fault in dk past the limit; at
+   the train shape in float32 also against float64;
 7b. train path: ``make_train_step`` of qwen1.5-0.5b and gemma3-1b at full
-   width and depth, float32, 4 microbatches of 2 x 2048 (cut from
-   ``train_4k``), one warm and 3 timed steps on ``SyntheticTokens``, one
-   model at a time: every parameter gets a finite, non-zero gradient, the
-   forward kernel launches twice a layer and microbatch (remat) and the
-   backward kernel once; step ms, tokens/s, peak memory, the device's busy
-   share and the backward kernel's share of it under ``torch.profiler``;
+   width and depth and of rwkv6-7b at 8 of 32 layers, float32, 4
+   microbatches of 2 x 2048 (cut from ``train_4k``), one warm and 3 timed
+   steps on ``SyntheticTokens``, one model at a time: every parameter gets
+   a finite, non-zero gradient, the forward kernel (flash_attention or
+   wkv6) launches twice a layer and microbatch (remat) and its backward
+   kernel once; step ms, tokens/s, peak memory, the device's busy share and
+   the backward kernel's share of it under ``torch.profiler``;
 7c. train correctness at full width and 2 layers, float32: the gradient of
    ``forward_loss`` through the kernels against the same model with the
-   plain versions (every leaf within 1e-4 of its norm), 4 microbatches
-   against 1, and qwen's loss falling by 0.5 over 30 steps;
+   plain versions (every leaf within 1e-4 of its norm; 2 x 2048 positions,
+   rwkv6-7b 2 x 256), 4 microbatches against 1, and qwen's loss falling by
+   0.5 over 30 steps;
 8. the device stepper's recurrence: ``lindley_ends`` on the card at 7,
    4097 and 2^20 requests (a clock past 5,000 s) against the float64
    ``_server_ends``, within 2e-6 s of delay;
@@ -99,7 +110,8 @@ and prints no result line):
     backward's bound at the float32 rate and at the split-TF32 rate
     (495 / 3 TFLOP/s), and the float32 forward kernel at the train shapes
     beside its plain version, SDPA's float32 forward and its bounds at the
-    same two rates.
+    same two rates; wkv6_bwd and the float32 wkv6 forward (token route) at
+    rwkv6-7b's train shape beside their plain versions and bounds.
 
 Phases 8-12 run torch ops, not hand kernels (the reference jits them; none
 reaches a Pallas kernel): their times, launches per call and bounds go on
@@ -156,8 +168,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 )
 from repro_torch.kernels.matmul import matmul, matmul_plain  # noqa: E402
 from repro_torch.kernels.matmul import route as matmul_route  # noqa: E402
+from repro_torch.kernels import wkv6 as wkv6_mod  # noqa: E402
 from repro_torch.kernels.wkv6 import route as wkv_route  # noqa: E402
-from repro_torch.kernels.wkv6 import wkv6, wkv6_plain  # noqa: E402
+from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd, wkv6_bwd_plain, wkv6_plain  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention, cnn, frontend, moe, rwkv, ssm  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -227,6 +240,15 @@ KERNELS = [
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",
         "wrapper": causal_attention_bwd,
+    },
+    {
+        # The gradient of wkv6's function, which the JAX package leaves to
+        # XLA's autodiff of models/rwkv.py:88 wkv_scan.
+        "name": "wkv6_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+        "replaces": "src/repro/kernels/wkv6.py:30",
+        "wrapper": wkv6_bwd,
     },
 ]
 
@@ -507,7 +529,8 @@ def phase_main_path() -> tuple[Plan, dict[str, int], dict[str, int]]:
     # One pointwise product per prefix stage, each on the card; the CNNs
     # have no attention or recurrence.
     expected = REQUESTS * (sum(plan.partition) + sum(FORCED_PLAN.partition))
-    assert launches == {"block_matmul": expected, "flash_attention": 0, "wkv6": 0, "flash_attention_bwd": 0}, (launches, expected)
+    assert launches == {"block_matmul": expected, "flash_attention": 0, "wkv6": 0, "flash_attention_bwd": 0,
+                        "wkv6_bwd": 0}, (launches, expected)
     # Every product of the path is float32 and takes the CUDA-core route.
     assert routes == {"cuda-core": expected}, (dict(routes), expected)
     return plan, launches, dict(routes)
@@ -994,6 +1017,7 @@ def phase_zoo_path(name: str, calls: Counter) -> dict[str, int]:
         "flash_attention": cfg.n_layers if cfg.block in ("transformer", "hymba") else 0,
         "wkv6": cfg.n_layers if cfg.block == "rwkv6" else 0,
         "flash_attention_bwd": 0,
+        "wkv6_bwd": 0,
     }
     print(f"  launches: after prefill {after_prefill}, after {ZOO_DECODE} decode steps {after_decode}")
     assert after_prefill == after_decode == want, (after_prefill, after_decode, want)
@@ -1241,7 +1265,14 @@ def phase_zoo_times(calls: Counter) -> dict[str, dict]:
 # Training on the card: flash_attention's backward kernel, then microbatched
 # float32 train steps of qwen1.5-0.5b and gemma3-1b at full width and depth
 # --------------------------------------------------------------------------
-TRAIN = {"qwen1.5-0.5b": ARCHS["qwen1.5-0.5b"], "gemma3-1b": ARCHS["gemma3-1b"]}
+# rwkv6-7b at RWKV_TRAIN_LAYERS of its 32 layers: its float32 training
+# state is 16 bytes a parameter, and the step holds about seven float32
+# copies of the parameters at the optimizer update (parameters, two
+# moments, the accumulated and the new gradient, new parameters and
+# moments), so 8 layers (2.29 B parameters) take about 60 GiB of 80.
+RWKV_TRAIN_LAYERS = 8
+TRAIN = {"qwen1.5-0.5b": ARCHS["qwen1.5-0.5b"], "gemma3-1b": ARCHS["gemma3-1b"],
+         "rwkv6-7b": dataclasses.replace(ARCHS["rwkv6-7b"], n_layers=RWKV_TRAIN_LAYERS)}
 # Cut from INPUT_SHAPES["train_4k"] (a global batch of 256 x 4096): 8 x 2048
 # positions a step, in 4 microbatches of 2 x 2048; one warm step, then
 # TRAIN_TIMED timed ones and one under the profiler.
@@ -1270,6 +1301,9 @@ TRAIN_BWD_SHAPES = [(2, 2048, 16, 16, 64, 0), (2, 2048, 4, 1, 256, 512), (2, 204
 # so that one microbatch's float32 logits stay near 2.5 GB), and the loss
 # falling by LOSS_FALL over LOSS_STEPS steps (test_loss_decreases_qwen_reduced).
 TRAIN_CHECK_LAYERS, TRAIN_GRAD_TOL = 2, 1e-4
+# rwkv6-7b's plain reference is a Python loop over positions (9 s a call
+# at 2 x 2048 eagerly, PERF.md), differentiated by autograd: 2 x 256.
+TRAIN_CHECK_SEQ = {"rwkv6-7b": 256}
 MICRO_CHECK_BATCH, MICRO_CHECK_SEQ = 8, 512
 # AdamW's first step moves each parameter by lr * g / (|g| + eps), about
 # lr * sign(g): where |g| is within rounding of 0 the two accumulation
@@ -1281,6 +1315,13 @@ MICRO_SIGN_TOL, MICRO_SIGN_SHARE = 1e-4, 1e-5
 LOSS_STEPS, LOSS_BATCH, LOSS_SEQ, LOSS_LR, LOSS_FALL = 30, 8, 128, 3e-3, 0.5
 BWD_PRODUCT_KERNELS = ("stats_kernel", "dkdv_kernel", "dq_kernel")   # flash_attention_bwd.cu
 BWD_KERNEL_NAMES = BWD_PRODUCT_KERNELS + ("dkdv_reduce_kernel",)
+WKV_BWD_KERNEL_NAMES = ("states_kernel", "dv_kernel", "drkw_kernel")   # wkv6_bwd.cu
+# Each train path's forward and backward kernels, as the profiler names
+# them (demangled), by the block its layers run.
+TRAIN_KERNELS = {
+    "transformer": ("flash_attention", r"flash_kernel", "flash_attention_bwd", "|".join(BWD_KERNEL_NAMES)),
+    "rwkv6": ("wkv6", r"\b(wkv6|chunk)_kernel\b", "wkv6_bwd", r"\b(states|dv|drkw)_kernel\b"),
+}
 
 
 def grad_row_floor(want) -> float:
@@ -1360,38 +1401,155 @@ def check_flash_bwd(shapes, dtypes, against_f64: bool = False) -> float:
     return worst
 
 
+# wkv6's backward kernels against wkv6_bwd_plain: rwkv6-7b's train shape
+# (B, T, H, hd), float32 on its path and bfloat16 beside it.
+WKV_TRAIN_SHAPE = (2, TRAIN_SEQ, 64, 64)
+
+
+def wkv_grad_operands(shape, dtype, seed, with_state, decays):
+    """wkv_operands plus a float32 output gradient and, with a state, a
+    final-state gradient."""
+    r, k, v, w, u, state = wkv_operands(shape, dtype, seed, with_state, decays)
+    g = torch.Generator().manual_seed(100 + seed)
+    dout = torch.randn(shape, generator=g).to(DEVICE)
+    dfinal = torch.randn(state.shape, generator=g).to(DEVICE) if with_state else None
+    return r, k, v, w, u, state, dout, dfinal
+
+
+def wkv_chunk_fault(args, want_dk, floor) -> float | None:
+    """grad_row_err of a planted fault: the first 64 tokens' dk misses the
+    state gradient that tokens 64..95 (one 32-token chunk) put in, what a
+    walk that skips one chunk's r dout^T would give.  None where T is too
+    short."""
+    if args[0].shape[1] < 128:
+        return None
+    dout_cut = args[6].clone()
+    dout_cut[:, 64:96] = 0
+    dk_cut = wkv6_bwd_plain(*args[:6], dout_cut, args[7])[1]
+    fault = want_dk.clone()
+    fault[:, :64] = dk_cut[:, :64]
+    return grad_row_err(fault, want_dk, floor)
+
+
+def check_wkv6_bwd(shapes, dtypes, decays="mild", against_f64: bool = False) -> float:
+    """The backward kernels against wkv6_bwd_plain on the same inputs, from
+    a zero state and from a random one with a final-state gradient: every
+    dr, dk, dv and dw row within GRAD_ROW_TOL (floored at GRAD_ROW_FLOOR of
+    their RMS row norm), du and d(state) per row likewise, all finite, a
+    second call bitwise equal to the first, and a planted one-chunk fault in
+    dk past the limit on long shapes; returns the largest absolute error.
+    With ``against_f64``, also prints the kernels' and the plain version's
+    row errors against the plain version in float64 (a reading)."""
+    worst = 0.0
+    names = ("dr", "dk", "dv", "dw", "du", "dstate")
+    for dtype in dtypes:
+        for i, shape in enumerate(shapes):
+            for with_state in (False, True):
+                args = wkv_grad_operands(shape, dtype, i, with_state, decays)
+                got = wkv6_bwd(*args)
+                again = wkv6_bwd(*args)
+                torch.cuda.synchronize()
+                bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+                want = wkv6_bwd_plain(*args)
+                floor = grad_row_floor(want[:4])
+                errs = [grad_row_err(a, b, floor) for a, b in zip(got[:4], want[:4])]
+                errs += [grad_row_err(a, b, grad_row_floor([b])) for a, b in zip(got[4:], want[4:])]
+                abs_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+                finite = all(bool(torch.isfinite(a).all()) for a in got)
+                fault_err = wkv_chunk_fault(args, want[1], floor)
+                tol = GRAD_ROW_TOL[dtype]
+                ok = finite and bitwise and max(errs) <= tol
+                fault = "" if fault_err is None else f" one-chunk fault in dk={fault_err:.3e}"
+                print(
+                    f"  wkv6_bwd r,k,v {str(dtype)[6:]} (B,T,H,hd)={shape} {decays} decays, "
+                    f"{'random state, dfinal' if with_state else 'zero state'}: row_rel_err "
+                    + " ".join(f"{n}={e:.3e}" for n, e in zip(names, errs))
+                    + f" tol={tol} max_abs_err={abs_err:.3e} finite={finite} bitwise_repeat={bitwise}{fault} "
+                    f"{'ok' if ok else 'MISMATCH'}"
+                )
+                if not ok:
+                    raise AssertionError(f"wkv6_bwd disagrees with its plain version at {shape} {dtype} ({decays})")
+                if fault_err is not None and fault_err <= tol:
+                    raise AssertionError(f"GRAD_ROW_TOL cannot see a one-chunk fault at {shape} {dtype}: {fault_err:.3e}")
+                if against_f64:
+                    exact = wkv6_bwd_plain(*(None if a is None else a.double() for a in args))
+                    floor64 = grad_row_floor(exact[:4])
+                    kern = [grad_row_err(a, b, floor64) for a, b in zip(got[:4], exact[:4])]
+                    plain = [grad_row_err(a, b, floor64) for a, b in zip(want[:4], exact[:4])]
+                    print("    against float64: kernel " + " ".join(f"{n}={e:.3e}" for n, e in zip(names, kern))
+                          + f"; {str(dtype)[6:]} plain " + " ".join(f"{n}={e:.3e}" for n, e in zip(names, plain)))
+                    del exact
+                worst = max(worst, abs_err)
+                del got, again, want
+    return worst
+
+
+def phase_wkv6_bwd_resources() -> dict:
+    """The wkv6 backward library's kernels: registers and spills from ptxas
+    (no spills; three kernels for each type pair and head_dim) and the
+    dr/dk/dw kernel's dynamic shared memory at every head_dim, from the
+    library itself (within the 227 KB a block may take)."""
+    res, spilled = printed_resources("wkv6_bwd")
+    if len(res) != len(WKV_BWD_KERNEL_NAMES) * 4 * len(wkv6_mod.HEAD_DIMS) or spilled:
+        raise AssertionError(f"wkv6_bwd: {len(res)} kernels in the ptxas report, spills in {spilled}")
+    fn = build.load("wkv6_bwd").wkv6_bwd_smem
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    smem = {f"hd {hd}": fn(hd) for hd in wkv6_mod.HEAD_DIMS}
+    print(f"  drkw_kernel dynamic shared memory (bytes): {smem}")
+    if max(smem.values()) > SMEM_PER_BLOCK or min(smem.values()) <= 0:
+        raise AssertionError(f"wkv6_bwd's shared memory outside (0, {SMEM_PER_BLOCK}]: {smem}")
+    short = {}
+    for mangled, (regs, _) in res.items():
+        m = re.search(rf"\d+({'|'.join(WKV_BWD_KERNEL_NAMES)})I(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)Li(\d+)E",
+                      mangled)
+        if m:
+            tr = "float" if m.group(2) == "f" else "bfloat16"
+            tw = {"f": "float", "13__nv_bfloat16": "bfloat16"}.get(m.group(3), tr)
+            short[f"{m.group(1)}<{tr},{tw},{m.group(4)}>"] = regs
+        else:
+            short[mangled] = regs
+    return {"registers": short, "smem_bytes": smem}
+
+
 @contextlib.contextmanager
 def recording_bwd_calls(calls: Counter):
     """Count each (kernel, shape, dtype) the backward pass calls the
-    backward wrapper with (``_FlashAttention.backward`` looks it up in its
-    module at every call).  The wrapper is unchanged; while the recorder
-    stands in for it, the wrapper's own ``causal_attention_bwd.launches +=
-    1`` lands on the recorder, and is added to the wrapper's count on exit."""
-    wrapped = fa_mod.causal_attention_bwd
+    backward wrappers with (``_FlashAttention.backward`` and
+    ``_WKV6.backward`` look them up in their modules at every call).  The
+    wrappers are unchanged; while a recorder stands in for one, the
+    wrapper's own ``launches += 1`` lands on the recorder, and is added to
+    the wrapper's count on exit."""
+    flash, recur = fa_mod.causal_attention_bwd, wkv6_mod.wkv6_bwd
 
-    def rec(q, k, v, o, do, *, scale, window=0):
+    def flash_rec(q, k, v, o, do, *, scale, window=0):
         calls["flash_attention_bwd", (*q.shape[:3], k.shape[2], q.shape[3], window), q.dtype] += 1
-        return wrapped(q, k, v, o, do, scale=scale, window=window)
+        return flash(q, k, v, o, do, scale=scale, window=window)
 
-    rec.launches = 0
-    fa_mod.causal_attention_bwd = rec
+    def wkv_rec(r, k, v, w, u, state, dout, dfinal=None):
+        calls["wkv6_bwd", tuple(r.shape), r.dtype] += 1
+        return recur(r, k, v, w, u, state, dout, dfinal)
+
+    flash_rec.launches = wkv_rec.launches = 0
+    fa_mod.causal_attention_bwd, wkv6_mod.wkv6_bwd = flash_rec, wkv_rec
     try:
         yield
     finally:
-        fa_mod.causal_attention_bwd = wrapped
-        wrapped.launches += rec.launches
+        fa_mod.causal_attention_bwd, wkv6_mod.wkv6_bwd = flash, recur
+        flash.launches += flash_rec.launches
+        recur.launches += wkv_rec.launches
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """The model's attention through causal_attention_plain, which autograd
-    differentiates: the check's own reference, off the port's path."""
-    kernel = attention.causal_attention
-    attention.causal_attention = causal_attention_plain
+def plain_kernels():
+    """The model's attention and time mix through causal_attention_plain and
+    wkv6_plain, which autograd differentiates: the check's own reference,
+    off the port's path."""
+    flash, recur = attention.causal_attention, rwkv.wkv6
+    attention.causal_attention, rwkv.wkv6 = causal_attention_plain, wkv6_plain
     try:
         yield
     finally:
-        attention.causal_attention = kernel
+        attention.causal_attention, rwkv.wkv6 = flash, recur
 
 
 def param_grads(cfg, params, batch) -> tuple[float, list[tuple[str, torch.Tensor]]]:
@@ -1418,8 +1576,10 @@ def phase_train_path(name: str, calls: Counter) -> dict:
     data = batches_for_arch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=DEVICE)
     batches = [next(data) for _ in range(TRAIN_TIMED + 2)]
     full = INPUT_SHAPES["train_4k"]
+    depth = ARCHS[name].n_layers
     print(
-        f"{name}: {tf.count_params(cfg) / 1e9:.3f} B parameters in float32, {cfg.n_layers} layers (full depth), "
+        f"{name}: {tf.count_params(cfg) / 1e9:.3f} B parameters in float32, "
+        f"{cfg.n_layers} layers ({'full depth' if cfg.n_layers == depth else f'cut from {depth}'}), "
         f"init {time.perf_counter() - t0:.2f} s; {TRAIN_MICRO} microbatches of {TRAIN_BATCH // TRAIN_MICRO} x "
         f"{TRAIN_SEQ} a step (cut from {full.name}'s {full.global_batch} x {full.seq_len})"
     )
@@ -1448,8 +1608,10 @@ def phase_train_path(name: str, calls: Counter) -> dict:
                 raise AssertionError(f"{name}: non-finite loss or grad_norm at step {i}")
     launches = launch_counts()
     steps = TRAIN_TIMED + 1
-    want = {"block_matmul": 0, "flash_attention": 2 * cfg.n_layers * TRAIN_MICRO * steps,
-            "flash_attention_bwd": cfg.n_layers * TRAIN_MICRO * steps, "wkv6": 0}
+    fwd_name, fwd_re, bwd_name, bwd_re = TRAIN_KERNELS[cfg.block]
+    want = {k["name"]: 0 for k in KERNELS}
+    want[fwd_name] = 2 * cfg.n_layers * TRAIN_MICRO * steps
+    want[bwd_name] = cfg.n_layers * TRAIN_MICRO * steps
     print(f"  launches over {steps} steps: {launches} (want {want}: two forwards a layer and microbatch under remat)")
     assert launches == want, (launches, want)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1459,11 +1621,14 @@ def phase_train_path(name: str, calls: Counter) -> dict:
     bwd_share = None
     if reading is not None:
         busy, wall, kernels = reading
-        bwd = sum(t for t, _, key in kernels if any(n in key for n in BWD_KERNEL_NAMES))
-        fwd = sum(t for t, _, key in kernels if "flash_kernel" in key)
+        bwd = sum(t for t, _, key in kernels if re.search(bwd_re, key))
+        fwd = sum(t for t, _, key in kernels if re.search(fwd_re, key))
         bwd_share = bwd / busy
-        print(f"    flash_attention_bwd kernels {bwd:.3f} ms ({bwd_share:.2%} of the step's device time); "
-              f"flash_attention forward {fwd:.3f} ms ({fwd / busy:.2%})")
+        print(f"    {bwd_name} kernels {bwd:.3f} ms ({bwd_share:.2%} of the step's device time); "
+              f"{fwd_name} forward {fwd:.3f} ms ({fwd / busy:.2%})")
+        for t, n, key in kernels:
+            if re.search(bwd_re, key):
+                print(f"      {t:10.3f} ms x{n:<5} {key[:90]}")
     print(
         f"  warm: train step {med:.3f} ms (median of {TRAIN_TIMED}; {', '.join(f'{t:.3f}' for t in step_ms)}), "
         f"{tokens / med * 1e3:.1f} tokens/s, peak memory {peak:.2f} GiB; {time.perf_counter() - t0:.2f} s"
@@ -1481,20 +1646,21 @@ def phase_train_check() -> None:
     the loss falls on SyntheticTokens."""
     for name, base in TRAIN.items():
         cfg = dataclasses.replace(base, n_layers=TRAIN_CHECK_LAYERS)
+        seq = TRAIN_CHECK_SEQ.get(name, TRAIN_SEQ)
         params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(3), device=DEVICE, dtype=torch.float32)
-        batch = next(batches_for_arch(cfg, 2, TRAIN_SEQ, seed=4, device=DEVICE))
+        batch = next(batches_for_arch(cfg, 2, seq, seed=4, device=DEVICE))
         for k in KERNELS:
             k["wrapper"].launches = 0
         loss, got = param_grads(cfg, params, batch)
         kernel_launches = launch_counts()
-        with plain_attention():
+        with plain_kernels():
             plain_loss, want = param_grads(cfg, params, batch)
         assert launch_counts() == kernel_launches, "the plain check launched a kernel"
-        assert kernel_launches["flash_attention_bwd"] == cfg.n_layers, kernel_launches
+        assert kernel_launches[TRAIN_KERNELS[cfg.block][2]] == cfg.n_layers, kernel_launches
         errs = {path: float((g - w).norm() / w.norm().clamp_min(1e-30)) for (path, g), (_, w) in zip(got, want)}
         worst = max(errs, key=errs.get)
         windows = sorted(set(tf.layer_window_values(cfg)))
-        print(f"  {name}, {cfg.n_layers} layers (windows {windows}), 2 x {TRAIN_SEQ}: loss {loss:.6f} vs plain "
+        print(f"  {name}, {cfg.n_layers} layers (windows {windows}), 2 x {seq}: loss {loss:.6f} vs plain "
               f"{plain_loss:.6f}; gradient of {len(errs)} leaves, largest error over norm {errs[worst]:.3e} "
               f"({worst}), tol {TRAIN_GRAD_TOL}")
         if errs[worst] > TRAIN_GRAD_TOL or abs(loss - plain_loss) > TRAIN_GRAD_TOL * abs(plain_loss):
@@ -1638,6 +1804,70 @@ def phase_train_times(calls: Counter) -> tuple[dict, list[dict]]:
            "library_ms": tot["library_ms"], "graph_ms": tot["graph_ms"],
            "bound_split_tf32_ms": tot["bound_split_tf32_ms"]}
     print(f"  one train step of each model ({sum(n for _, _, n in rows)} calls): " + ", ".join(
+        f"{k2}={v2:.6f}" if isinstance(v2, float) else f"{k2}={v2}" for k2, v2 in out.items()))
+    return out, forward
+
+
+def wkv_bwd_bound(key, dtype) -> tuple[float, str]:
+    """Least time (ms) of wkv6's gradient: r, k, v (``dtype``), w, dout, u,
+    the initial state and the final state's gradient read and dr, dk, dv,
+    dw, du and d(state) written once at the memory rate, or 14 * hd^2
+    operations per token and head (S dout, G v, G^T k and rowsum(G * S), 2
+    hd^2 each; G's update and S rebuilt forward, 3 hd^2 each) at the peak
+    rate of r, k, v's type, whichever is longer."""
+    b, t, h, hd = key
+    size = torch.empty((), dtype=dtype).element_size()
+    n, state = b * t * h * hd, b * h * hd * hd
+    t_bytes = (2 * 3 * n * size + 2 * n * 4 + n * 4 + 2 * h * hd * 4 + 4 * state * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = 14.0 * hd * hd * b * t * h / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_wkv_train_times(calls: Counter) -> tuple[dict, list[dict]]:
+    """Times of wkv6's backward kernels at each shape the train path called
+    them with, beside their plain version and bound (no single PyTorch call
+    computes the function); the totals over one train step (each shape
+    times its calls a step) are the kernels line's numbers.  Also the
+    forward kernel at the same shapes, float32 (the token route), beside
+    its plain version and bound, returned per shape."""
+    rows = [(key, dtype, n // (TRAIN_TIMED + 1)) for (kname, key, dtype), n in calls.items() if kname == "wkv6_bwd"]
+    tot, by_bytes, forward = Counter(), 0.0, []
+    print("times of wkv6_bwd (ms per call, CUDA events) at the train path's shapes:")
+    for key, dtype, n in rows:
+        args = wkv_grad_operands(key, dtype, 0, False, "mild")
+        fn = lambda: wkv6_bwd(*args)  # noqa: E731
+        plain = lambda: wkv6_bwd_plain(*args)  # noqa: E731
+        bound_ms, bound_by = wkv_bwd_bound(key, dtype)
+        t = {"ms": time_ms(fn, 10, warmup=2), "graph_ms": time_graph_ms(fn, calls=5, replays=3),
+             "plain_ms": time_ms(plain, 2, warmup=1), "bound_ms": bound_ms}
+        print(
+            f"  {str(dtype)[6:]} (B,T,H,hd)={key}, {n} calls a step: kernel={t['ms']:.6f} graph={t['graph_ms']:.6f} "
+            f"plain={t['plain_ms']:.6f} library=none bound={bound_ms:.6f} ({bound_by}) "
+            f"share={bound_ms / t['ms']:.4%} graph share={bound_ms / t['graph_ms']:.4%}"
+        )
+        for key2, val in t.items():
+            tot[key2] += n * val
+        if bound_by == "bytes":
+            by_bytes += n * bound_ms
+        fwd = lambda: wkv6(*args[:6])  # noqa: E731
+        fwd_bound, fwd_by = wkv_bound(key, dtype)
+        f = {
+            "shape": list(key), "dtype": str(dtype)[6:], "route": wkv_route(dtype, key[3]), "calls_a_step": 2 * n,
+            "ms": time_ms(fwd, 10, warmup=2), "graph_ms": time_graph_ms(fwd, calls=5, replays=3),
+            "plain_ms": time_ms(lambda: wkv6_plain(*args[:6]), 1, warmup=0),
+            "bound_ms": fwd_bound, "bound_by": fwd_by,
+        }
+        print(
+            f"    forward at that shape ({2 * n} calls a step under remat), {f['route']} route: "
+            f"kernel={f['ms']:.6f} graph={f['graph_ms']:.6f} plain={f['plain_ms']:.6f} "
+            f"bound={fwd_bound:.6f} ({fwd_by}) graph share={fwd_bound / f['graph_ms']:.4%}"
+        )
+        forward.append(f)
+        del args
+    out = {"ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+           "bound_by": "bytes" if by_bytes >= tot["bound_ms"] / 2 else "operations",
+           "library_ms": None, "graph_ms": tot["graph_ms"]}
+    print(f"  one train step ({sum(n for _, _, n in rows)} calls): " + ", ".join(
         f"{k2}={v2:.6f}" if isinstance(v2, float) else f"{k2}={v2}" for k2, v2 in out.items()))
     return out, forward
 
@@ -2092,6 +2322,7 @@ def main() -> int:
     bwd_dmma = phase("tensor cores: DMMA in the flash_attention_bwd library", phase_tensor_cores,
                      "flash_attention_bwd", "DMMA", None, {r"9dq_kernelI": 2 * len(fa_mod.HEAD_DIMS)})
     bwd_resources = phase("flash_attention_bwd: registers, spills, shared memory", phase_bwd_resources)
+    wkv_bwd_resources = phase("wkv6_bwd: registers, spills, shared memory", phase_wkv6_bwd_resources)
     matmul_k = KERNELS[0]
     checks = {"block_matmul": phase("kernel vs plain: block_matmul", phase_kernel_vs_plain, matmul_k)}
     phase("kernel vs plain: flash_attention, test and ragged shapes", check_flash,
@@ -2134,6 +2365,15 @@ def main() -> int:
     checks["flash_attention_bwd"] = {"max_abs_err": phase(
         "kernel vs plain: flash_attention_bwd at the train path's shapes", check_flash_bwd,
         TRAIN_BWD_SHAPES, (torch.float32,), True)}
+    for decays in ("mild", "strong"):
+        phase(f"kernel vs plain: wkv6_bwd, test and ragged shapes, {decays} decays", check_wkv6_bwd,
+              WKV_TEST_SHAPES + WKV_RAGGED_SHAPES, (torch.float32, torch.bfloat16), decays)
+    phase("kernel vs plain: wkv6_bwd at the train path's shape in bfloat16", check_wkv6_bwd,
+          [WKV_TRAIN_SHAPE], (torch.bfloat16,), "strong")
+    checks["wkv6_bwd"] = {"max_abs_err": max(
+        phase(f"kernel vs plain: wkv6_bwd at the train path's shape, {decays} decays, and against float64",
+              check_wkv6_bwd, [WKV_TRAIN_SHAPE], (torch.float32,), decays, True)
+        for decays in ("mild", "strong"))}
     train_calls = Counter()
     train = {}
     for name in TRAIN:
@@ -2162,6 +2402,7 @@ def main() -> int:
     times = {"block_matmul": phase("times: block_matmul", phase_times, matmul_k)}
     times.update(phase("times: flash_attention and wkv6", phase_zoo_times, calls))
     times["flash_attention_bwd"], train_forward = phase("times: flash_attention_bwd", phase_train_times, train_calls)
+    times["wkv6_bwd"], wkv_train_forward = phase("times: wkv6_bwd", phase_wkv_train_times, train_calls)
 
     line = []
     for k in KERNELS:
@@ -2182,13 +2423,24 @@ def main() -> int:
                 "smem_bytes": fwd_resources["smem_bytes"],
                 "launches_by_path": {n: v["flash_attention"] for n, v in zoo_launches.items()
                                                           if "flash_attention" in v}
-                | {f"train {n}": v["launches"]["flash_attention"] for n, v in train.items()},
+                | {f"train {n}": v["launches"]["flash_attention"] for n, v in train.items()
+                   if v["launches"]["flash_attention"]},
                 "routes": flash_routes, "train_forward_f32": train_forward} if name == "flash_attention" else {}),
-            **({"sass_hmma": hmma, "routes": wkv_routes} if name == "wkv6" else {}),
-            **({"launches_by_path": {f"train {n}": v["launches"][name] for n, v in train.items()},
+            **({"sass_hmma": hmma, "routes": wkv_routes, "train_forward_f32": wkv_train_forward,
+                "launches_by_path": {n: v["wkv6"] for n, v in zoo_launches.items() if "wkv6" in v}
+                | {f"train {n}": v["launches"]["wkv6"] for n, v in train.items() if v["launches"]["wkv6"]}}
+               if name == "wkv6" else {}),
+            **({"launches_by_path": {f"train {n}": v["launches"][name] for n, v in train.items()
+                                      if v["launches"][name]},
                 "shapes": sorted({str(key) for (k2, key, _dt) in train_calls if k2 == name}),
                 "sass_hmma": bwd_hmma, "sass_dmma": bwd_dmma, "registers": bwd_resources["registers"]}
                if name == "flash_attention_bwd" else {}),
+            **({"launches_by_path": {f"train {n}": v["launches"][name] for n, v in train.items()
+                                      if v["launches"][name]},
+                "shapes": sorted({str(key) for (k2, key, _dt) in train_calls if k2 == name}),
+                "registers": wkv_bwd_resources["registers"], "spills": 0,
+                "smem_bytes": wkv_bwd_resources["smem_bytes"]}
+               if name == "wkv6_bwd" else {}),
         })
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"torch_ops": torch_ops, "ssm_scans": scans}))

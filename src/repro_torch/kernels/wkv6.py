@@ -14,6 +14,17 @@ operands split into high and low parts, float32 accumulators); every
 float32 shape and bfloat16 at head_dim 8, 16 or 32 take the token kernel,
 the exact recurrence one token at a time on the CUDA cores.  The routing is
 fixed; neither kernel stands in for the other.
+
+The gradient is a kernel too: when autograd records a CUDA call, ``wkv6``
+is the entry of the autograd function ``_WKV6``, whose forward is the
+kernel above and whose backward launches the hand-written ``wkv6_bwd``
+kernels (``csrc/wkv6_bwd.cu``: checkpoints of the state every
+``BWD_CHUNK`` tokens, then the reverse-time recurrence of the state's
+gradient on the CUDA cores, for every type and head_dim), with
+``wkv6_bwd_plain`` as their plain version.  The JAX package differentiates
+``models/rwkv.py::wkv_scan`` with XLA instead; it has no backward kernel.
+On CPU tensors ``wkv6`` computes ``wkv6_plain``, which autograd
+differentiates.
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ from repro_torch.kernels import build
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (8, 16, 32, 64)   # the kernels' instantiations
 CHUNK_HEAD_DIMS = (64,)       # bfloat16 ones on the chunk kernel
+BWD_CHUNK = 32                # tokens between the backward's state checkpoints (CH in wkv6_bwd.cu)
 
 
 @functools.cache
@@ -39,6 +51,14 @@ def _kernel():
         ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_kernel():
+    fn = build.load("wkv6_bwd").wkv6_bwd
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -67,6 +87,53 @@ def wkv6_plain(
         outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], s + bonus * kv))
         s = w[:, t, :, :, None] * s + kv
     return torch.stack(outs, dim=1), s
+
+
+def wkv6_bwd_plain(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    state: torch.Tensor | None,
+    dout: torch.Tensor,
+    dfinal: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """The gradient of ``wkv6_plain(r, k, v, w, u, state)`` for the output
+    gradient ``dout`` (B, T, H, hd) and the final state's ``dfinal``
+    (B, H, hd, hd; zero when None), by the reverse-time recurrence of the
+    state's gradient G: with S_{t-1} the state before token t and G_t the
+    gradient of the state after it (G_T = dfinal), ``dr_t = S_{t-1} dout_t
+    + u k_t (v_t . dout_t)``, ``dk_t = G_t v_t + r_t u (v_t . dout_t)``,
+    ``dv_t = G_t^T k_t + (r_t . u k_t) dout_t``, ``dw_t = rowsum(G_t *
+    S_{t-1})``, ``du = sum_t r_t k_t (v_t . dout_t)``, ``G_{t-1} = diag(w_t)
+    G_t + r_t dout_t^T`` and d(state) = G_0.
+
+    Computes in float32 (float64 for float64 inputs, a yardstick).  Returns
+    (dr, dk, dv in r's dtype, dw in w's, du (H, hd) and d(state)
+    (B, H, hd, hd) in the compute type)."""
+    b, t_len, h, hd = r.shape
+    ct = torch.float64 if r.dtype == torch.float64 else torch.float32
+    rc, kc, vc, wc, do = (a.to(ct) for a in (r, k, v, w, dout))
+    uc = u.to(ct)
+    s = torch.zeros((b, h, hd, hd), dtype=ct, device=r.device) if state is None else state.to(ct)
+    prev = torch.empty((t_len, b, h, hd, hd), dtype=ct, device=r.device)   # S_{t-1}
+    for t in range(t_len):
+        prev[t] = s
+        s = wc[:, t, :, :, None] * s + kc[:, t, :, :, None] * vc[:, t, :, None, :]
+    g = torch.zeros_like(s) if dfinal is None else dfinal.to(ct).clone()
+    dk, dv, dw = (torch.empty((b, t_len, h, hd), dtype=ct, device=r.device) for _ in range(3))
+    for t in reversed(range(t_len)):
+        dk[:, t] = (g @ vc[:, t, :, :, None])[..., 0]
+        dv[:, t] = (kc[:, t, :, None, :] @ g)[..., 0, :]
+        dw[:, t] = (g * prev[t]).sum(-1)
+        g = wc[:, t, :, :, None] * g + rc[:, t, :, :, None] * do[:, t, :, None, :]
+    vd = (vc * do).sum(-1, keepdim=True)                       # (B, T, H, 1)
+    dr = torch.einsum("tbhij,bthj->bthi", prev, do) + uc * kc * vd
+    dk = dk + rc * uc * vd
+    dv = dv + (rc * uc * kc).sum(-1, keepdim=True) * do
+    du = (rc * kc * vd).sum((0, 1))
+    return dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw.to(w.dtype), du, g
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -115,6 +182,131 @@ def _check(r, k, v, w, u, state) -> None:
         raise ValueError(f"unsupported device {r.device}")
 
 
+def _check_kernel(r, k, v, w, u, state) -> None:
+    """What both kernels take beyond ``_check``: non-empty, hd in
+    ``HEAD_DIMS``, u and state float32, contiguous."""
+    b, t_len, h, hd = r.shape
+    if min(b, t_len, h) < 1:
+        raise ValueError(f"empty wkv6 input {tuple(r.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS}, got {hd}")
+    if u.dtype != torch.float32 or (state is not None and state.dtype != torch.float32):
+        raise TypeError("the wkv6 kernel takes u and state in float32")
+    tensors = [r, k, v, w, u] + ([] if state is None else [state])
+    if not all(a.is_contiguous() for a in tensors):
+        raise ValueError("the wkv6 kernel takes contiguous operands")
+
+
+def _ptr(a: torch.Tensor | None):
+    return None if a is None else a.data_ptr()
+
+
+def _forward(r, k, v, w, u, state) -> tuple[torch.Tensor, torch.Tensor]:
+    if r.device.type == "cpu":
+        return wkv6_plain(r, k, v, w, u, state)
+    _check_kernel(r, k, v, w, u, state)
+    b, t_len, h, hd = r.shape
+    check_alignment(route(r.dtype, hd), r, k, v, w)
+    kernel = _kernel()
+    out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    final = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = kernel(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            _ptr(state), out.data_ptr(), final.data_ptr(),
+            b, t_len, h, hd, int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"wkv6 launch failed with CUDA error {err}")
+    wkv6.launches += 1
+    return out, final
+
+
+def wkv6_bwd(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    state: torch.Tensor | None,
+    dout: torch.Tensor,
+    dfinal: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """(dr, dk, dv, dw, du, d(state)) of ``wkv6(r, k, v, w, u, state)`` for
+    the output gradient ``dout`` (B, T, H, hd) and the final state's
+    ``dfinal`` (B, H, hd, hd; zero when None), both float32: dr, dk, dv in
+    r's dtype, dw in w's, du (H, hd) and d(state) (B, H, hd, hd) float32.
+
+    On CUDA tensors (as the forward kernel takes them; dout and dfinal
+    float32 and contiguous) this launches the ``wkv6_bwd`` kernels on the
+    current stream and raises if it cannot; on CPU tensors it computes
+    ``wkv6_bwd_plain``.  ``wkv6_bwd.launches`` counts the calls that
+    launched them.
+    """
+    _check(r, k, v, w, u, state)
+    b, t_len, h, hd = r.shape
+    if tuple(dout.shape) != tuple(r.shape) or dout.dtype != torch.float32 or dout.device != r.device:
+        raise ValueError(f"dout must be float32 {tuple(r.shape)} on {r.device}, got "
+                         f"{dout.dtype} {tuple(dout.shape)} on {dout.device}")
+    if dfinal is not None and (tuple(dfinal.shape) != (b, h, hd, hd) or dfinal.dtype != torch.float32
+                               or dfinal.device != r.device):
+        raise ValueError(f"dfinal must be float32 {(b, h, hd, hd)} on {r.device}, got "
+                         f"{dfinal.dtype} {tuple(dfinal.shape)} on {dfinal.device}")
+    if r.device.type == "cpu":
+        return wkv6_bwd_plain(r, k, v, w, u, state, dout, dfinal)
+    _check_kernel(r, k, v, w, u, state)
+    if not (dout.is_contiguous() and (dfinal is None or dfinal.is_contiguous())):
+        raise ValueError("the wkv6 backward kernel takes contiguous dout and dfinal")
+    kernel = _bwd_kernel()
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dw = torch.empty_like(w)
+    du_part = torch.empty((b, h, hd), dtype=torch.float32, device=r.device)
+    dstate = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    n_chunks = -(-t_len // BWD_CHUNK)
+    ckpt = torch.empty((b, h, n_chunks, hd, hd), dtype=torch.float32, device=r.device)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = kernel(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), _ptr(state),
+            dout.data_ptr(), _ptr(dfinal), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+            du_part.data_ptr(), dstate.data_ptr(), ckpt.data_ptr(),
+            b, t_len, h, hd, int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"wkv6_bwd launch failed with CUDA error {err}")
+    wkv6_bwd.launches += 1
+    # du's per-(b, h) partials, summed over b in order (no atomics).
+    return dr, dk, dv, dw, du_part.sum(0), dstate
+
+
+wkv6_bwd.launches = 0
+
+
+class _WKV6(torch.autograd.Function):
+    """``wkv6`` with its gradient: the forward kernel, then the backward
+    kernels on the saved r, k, v, w, u and initial state (their plain
+    versions on CPU tensors).  A final state whose gradient autograd does
+    not pass counts as zero; an initial state of None gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return _forward(r, k, v, w, u, state)
+
+    @staticmethod
+    def backward(ctx, dout, dfinal):
+        r, k, v, w, u, state = ctx.saved_tensors
+        dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device) if dout is None else dout.contiguous()
+        dr, dk, dv, dw, du, dstate = wkv6_bwd(
+            r, k, v, w, u, state, dout, None if dfinal is None else dfinal.contiguous()
+        )
+        return dr, dk, dv, dw, du, None if state is None else dstate
+
+
 def wkv6(
     r: torch.Tensor,
     k: torch.Tensor,
@@ -131,46 +323,17 @@ def wkv6(
     bfloat16; u and state float32; hd in ``HEAD_DIMS``; r, k, v, w
     16-byte-aligned on the chunk route) this launches the kernel that
     ``route`` names on the current stream and raises if it cannot; on CPU
-    tensors it computes ``wkv6_plain``.  A CUDA call that autograd would
-    record (grad mode on and an input requiring grad) raises
-    ``NotImplementedError``: the kernel has no backward yet.
-    ``wkv6.launches`` counts the launches of either kernel.
+    tensors it computes ``wkv6_plain``.  When autograd records a CUDA call
+    (grad mode on and an input requiring grad) the call goes through
+    ``_WKV6``, whose backward is ``wkv6_bwd``.  ``wkv6.launches`` counts the
+    launches of either forward kernel.
     """
     _check(r, k, v, w, u, state)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, state)
     if torch.is_grad_enabled() and any(a.requires_grad for a in (r, k, v, w, u, state) if a is not None):
-        raise NotImplementedError(
-            "the wkv6 kernel has no backward kernel yet: a gradient through it "
-            "cannot be computed on the card"
-        )
-
-    b, t_len, h, hd = r.shape
-    if min(b, t_len, h) < 1:
-        raise ValueError(f"empty wkv6 input {tuple(r.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS}, got {hd}")
-    if u.dtype != torch.float32 or (state is not None and state.dtype != torch.float32):
-        raise TypeError("the wkv6 kernel takes u and state in float32")
-    tensors = [r, k, v, w, u] + ([] if state is None else [state])
-    if not all(a.is_contiguous() for a in tensors):
-        raise ValueError("the wkv6 kernel takes contiguous operands")
-    check_alignment(route(r.dtype, hd), r, k, v, w)
-    kernel = _kernel()
-    out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
-    final = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = kernel(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-            None if state is None else state.data_ptr(), out.data_ptr(), final.data_ptr(),
-            b, t_len, h, hd, int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"wkv6 launch failed with CUDA error {err}")
-    wkv6.launches += 1
-    return out, final
+        return _WKV6.apply(r, k, v, w, u, state)
+    return _forward(r, k, v, w, u, state)
 
 
 wkv6.launches = 0

@@ -6,8 +6,7 @@ parameters, on the GPU unless ``--device cpu`` is given.  ``--checkpoint``
 writes the reference's file: its keys, shapes and values, layers stacked by
 group position (``training/checkpoint.py::save_params``).  Attention and its
 gradient run through the hand-written ``flash_attention`` kernels on the
-card; rwkv6 waits for a ``wkv6`` backward kernel there (its wrapper raises)
-and trains on the host through the plain recurrence.
+card, and rwkv6's time mix and its gradient through the ``wkv6`` kernels.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
         --reduced --steps 50 --batch 8 --seq 128 --log-every 10

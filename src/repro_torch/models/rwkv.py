@@ -9,8 +9,11 @@ Port of the JAX package's ``models/rwkv.py``.  The WKV6 recurrence per head
 with w_t = exp(-exp(w0 + lora(x_t))) the data-dependent decay.  A prompt
 (S > 1) goes through the hand-written ``wkv6`` kernel
 (``kernels/wkv6.py``), which returns the final state for the decode cache;
-one decode token (S == 1) steps ``wkv_scan``.  The reference's
-``wkv_chunked`` is not ported: the kernel takes its place.
+one decode token (S == 1) steps ``wkv_scan``.  Training differentiates the
+kernel call through ``_WKV6``, whose backward is the hand-written
+``wkv6_bwd`` kernel, where the reference differentiates ``wkv_scan`` with
+XLA.  The reference's ``wkv_chunked`` is not ported: the kernel takes its
+place.
 """
 from __future__ import annotations
 

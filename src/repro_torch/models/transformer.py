@@ -18,9 +18,8 @@ left out.
 * The full forward (``embed_inputs`` -> ``backbone`` -> ``unembed``),
   ``forward_loss`` and ``prefill_step`` run attention through the
   ``flash_attention`` kernel and the RWKV time mix through the ``wkv6``
-  kernel.  A gradient of attention runs ``flash_attention``'s backward
-  kernel; ``wkv6`` has none yet, so on the card RWKV6 trains not at all
-  (its wrapper raises) and on the host through the plain recurrence.
+  kernel.  A gradient of either runs its hand-written backward kernel
+  (``flash_attention_bwd``, ``wkv6_bwd``).
 * ``decode_step`` keeps per-layer caches: full-attention layers a KV cache
   of ``max_len`` slots, sliding-window layers a ring buffer of ``window``
   slots, RWKV layers their O(1) recurrent state, hymba layers the SSM

@@ -30,7 +30,7 @@ from repro_torch.training import checkpoint
 from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
 from repro_torch.training.schedule import cosine_schedule, wsd_schedule
 from repro_torch.training.train_loop import TrainConfig, init_train_state, make_train_step
-from repro_torch.training.tree import leaves_with_paths, tree_map
+from repro_torch.training.tree import leaves_with_paths, tree_map, tree_unflatten
 
 CPU = "cpu"
 
@@ -457,33 +457,50 @@ def test_kernels_without_a_backward_raise_on_a_gradient_request():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from repro_torch.kernels.matmul import matmul
-    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
 
     x = torch.randn(16, 32, device="cuda", requires_grad=True)
     with pytest.raises(NotImplementedError, match="block_matmul"):
         matmul(x, torch.randn(32, 8, device="cuda"))
+    # wkv6 has its backward kernel: a gradient request launches it.
     r, k, v, w = (torch.rand(1, 8, 2, 16, device="cuda") for _ in range(4))
     u = torch.zeros(2, 16, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="wkv6"):
-        wkv6(r, k, v, w, u)
+    before = wkv6_bwd.launches
+    out, _ = wkv6(r, k, v, w, u)
+    (du,) = torch.autograd.grad(out.sum(), [u])
+    assert wkv6_bwd.launches == before + 1 and bool(torch.isfinite(du).all())
     with torch.no_grad():   # serving: no gradient asked for, the kernels launch
         assert matmul(x, torch.randn(32, 8, device="cuda")).shape == (16, 8)
         assert wkv6(r, k, v, w, u)[0].shape == (1, 8, 2, 16)
+    assert wkv6_bwd.launches == before + 1
 
 
 @pytest.mark.cuda
-def test_rwkv6_training_raises_on_the_card_and_serving_does_not():
+def test_rwkv6_trains_on_the_card_and_serving_still_works():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
     from repro_torch.models.transformer import forward_loss, prefill_step
 
     cfg = get_arch("rwkv6-7b").reduced()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda", dtype=torch.float32)
-    batch = next(batches_for_arch(cfg, 2, 16, device="cuda"))
-    step = make_train_step(cfg, TrainConfig())
-    with pytest.raises(NotImplementedError, match="wkv6"):
-        step(params, adamw_init(params, AdamWConfig()), batch)
-    loss, _ = forward_loss(cfg, params, batch)      # no parameter requires grad
-    assert bool(torch.isfinite(loss))
-    logits, _ = prefill_step(cfg, params, {"tokens": batch["tokens"]}, 32)
+    flat = leaves_with_paths(params)
+    batches = batches_for_arch(cfg, 4, 64, device="cuda")
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3), n_microbatches=2)
+    step, opt = make_train_step(cfg, tcfg), adamw_init(params, tcfg.optimizer)
+    fwd, bwd = wkv6.launches, wkv6_bwd.launches
+    for _ in range(3):
+        params, opt, metrics = step(params, opt, next(batches))
+        assert bool(torch.isfinite(metrics["loss"])) and bool(torch.isfinite(metrics["grad_norm"]))
+    # Per layer and microbatch: two forwards (remat) and one backward.
+    assert wkv6.launches - fwd == 2 * cfg.n_layers * 2 * 3
+    assert wkv6_bwd.launches - bwd == cfg.n_layers * 2 * 3
+    live = [p.detach().requires_grad_(True) for _, p in leaves_with_paths(params)]
+    loss, _ = forward_loss(cfg, tree_unflatten(params, live), next(batches))
+    grads = torch.autograd.grad(loss, live)
+    for (path, _), g in zip(flat, grads):
+        assert bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0), path
+    with torch.no_grad():
+        batch = next(batches)
+        logits, _ = prefill_step(cfg, params, {"tokens": batch["tokens"]}, 96)
     assert bool(torch.isfinite(logits).all())

@@ -166,6 +166,47 @@ def test_cuda_kernel_matches_plain_version(dtype):
             torch.testing.assert_close(final, want_final, rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_backward_kernel_matches_autograd_of_plain_version(dtype):
+    """The gradient through ``_WKV6`` on the card (the ``wkv6_bwd``
+    kernels) against autograd of ``wkv6_plain`` on the same inputs, per row
+    (float32: 1e-4; bfloat16 gradients: 3e-2), at mild and strong decays,
+    ragged lengths, every head_dim, from a state and with a final-state
+    gradient; a second backward call is bitwise equal to the first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    tdt = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    for b, t, h, hd in [(1, 1, 2, 8), (1, 37, 3, 16), (2, 100, 4, 32), (2, 130, 2, 64), (2, 2048, 64, 64)]:
+        for kind in ("mild", "strong"):
+            r, k, v, w, u, s0 = _model_inputs(b, t, h, hd, kind, seed=t, with_state=True)
+            g = torch.Generator().manual_seed(t)
+            dout, dfinal = torch.randn(b, t, h, hd, generator=g).cuda(), torch.randn(b, h, hd, hd, generator=g).cuda()
+            grads = []
+            for fn in (wkv6, wkv6_plain):
+                leaves = [a.cuda().to(tdt if i < 3 else torch.float32).requires_grad_(True)
+                          for i, a in enumerate(_torch(r, k, v, w, u, s0))]
+                before = wkv6_mod.wkv6_bwd.launches
+                out, final = fn(*leaves)
+                grads.append(torch.autograd.grad((out * dout).sum() + (final * dfinal).sum(), leaves))
+                torch.cuda.synchronize()
+                assert wkv6_mod.wkv6_bwd.launches == before + (fn is wkv6)
+            want = grads[1]
+            sq = torch.cat([x.float().reshape(-1, hd).norm(dim=-1).square() for x in want[:4]])
+            floor = float(0.1 * sq.mean().sqrt())
+            for got_g, want_g in zip(grads[0], want):
+                assert got_g.dtype == want_g.dtype and bool(torch.isfinite(got_g).all())
+                diff = (got_g.float() - want_g.float()).reshape(-1, hd).norm(dim=-1)
+                norm = want_g.float().reshape(-1, hd).norm(dim=-1).clamp_min(floor)
+                assert float((diff / norm).max()) <= tol, ((b, t, h, hd), kind)
+            args = [a.cuda() for a in _torch(r, k, v, w, u, s0)]
+            args[:3] = [a.to(tdt) for a in args[:3]]
+            once = wkv6_mod.wkv6_bwd(*args, dout, dfinal)
+            again = wkv6_mod.wkv6_bwd(*args, dout, dfinal)
+            assert all(torch.equal(x, y) for x, y in zip(once, again))
+
+
 # --------------------------------------------------------------------------
 # A CPU model of the chunk kernel's schedule
 # --------------------------------------------------------------------------

@@ -23,8 +23,10 @@ and prints no result line):
    every instantiation of the backward's product kernels (stats, dK/dV,
    dQ) must have ``HMMA`` and every dQ one ``DMMA``; the backward's
    kernels must not spill, and each one's shared memory at every head_dim
-   and type must fit 227 KB; wkv6_bwd's kernels (checkpoints, dv, dr/dk/dw)
-   likewise;
+   and type must fit 227 KB; wkv6_bwd's kernels (chunk summaries, the scan
+   over chunks, per-chunk gradients) likewise, and each instantiation of
+   its two product kernels must have exactly its count of ``HMMA``
+   (``WKV_BWD_HMMA``);
 3. kernel vs plain: each kernel's wrapper on the card at the reference's
    test shapes and ragged ones (``block_matmul`` also at the serving path's
    shapes and, in bfloat16, at ragged tensor-core tiles and 4096^3), held
@@ -71,7 +73,8 @@ and prints no result line):
    random one with a final-state gradient: every dr, dk, dv, dw row (du
    and d(state) likewise) within ``GRAD_ROW_TOL``, all finite, a second
    call bitwise equal, a planted one-chunk fault in dk past the limit; at
-   the train shape in float32 also against float64;
+   the train shape in float32 also against float64, and the device time of
+   each of its kernels from the train step's profile;
 7b. train path: ``make_train_step`` of qwen1.5-0.5b and gemma3-1b at full
    width and depth and of rwkv6-7b at 8 of 32 layers, float32, 4
    microbatches of 2 x 2048 (cut from ``train_4k``), one warm and 3 timed
@@ -314,13 +317,15 @@ def find_cuobjdump() -> str | None:
 
 
 def phase_tensor_cores(name: str, opcode: str, expected: dict[str, int] | None = None,
-                       every: dict[str, int] | None = None) -> int:
+                       every: dict[str, int] | None = None, pinned: dict[str, int] | None = None) -> int:
     """Count the tensor-core instructions (``opcode``: HGMMA for Hopper's
     wgmma, HMMA for mma.sync) in each kernel of library ``name``'s SASS;
     fails when there are none, when the kernels whose mangled names match a
     pattern of ``expected`` are not exactly one with that pattern's count,
     when the kernels matching a pattern of ``every`` are not that many or
-    one of them has none, or when no ``cuobjdump`` is found."""
+    one of them has none, when a pattern of ``pinned`` matches no kernel or
+    one whose count is not the pattern's, or when no ``cuobjdump`` is
+    found."""
     tool = find_cuobjdump()
     if tool is None:
         raise RuntimeError("cuobjdump is not available: the tensor-core route cannot be shown")
@@ -349,6 +354,10 @@ def phase_tensor_cores(name: str, opcode: str, expected: dict[str, int] | None =
         if len(found) != n_kernels or min(found, default=0) == 0:
             raise AssertionError(f"{name} kernels matching {pattern!r} have {found} {opcode}, "
                                  f"expected {n_kernels} kernels with some each")
+    for pattern, want in (pinned or {}).items():
+        found = [n for fn_name, n in counts.items() if re.search(pattern, fn_name)]
+        if not found or any(n != want for n in found):
+            raise AssertionError(f"{name} kernels matching {pattern!r} have {found} {opcode}, expected {want} each")
     return total
 
 
@@ -1315,12 +1324,13 @@ MICRO_SIGN_TOL, MICRO_SIGN_SHARE = 1e-4, 1e-5
 LOSS_STEPS, LOSS_BATCH, LOSS_SEQ, LOSS_LR, LOSS_FALL = 30, 8, 128, 3e-3, 0.5
 BWD_PRODUCT_KERNELS = ("stats_kernel", "dkdv_kernel", "dq_kernel")   # flash_attention_bwd.cu
 BWD_KERNEL_NAMES = BWD_PRODUCT_KERNELS + ("dkdv_reduce_kernel",)
-WKV_BWD_KERNEL_NAMES = ("states_kernel", "dv_kernel", "drkw_kernel")   # wkv6_bwd.cu
+WKV_BWD_PRODUCT_KERNELS = ("sums_kernel", "grads_kernel")   # wkv6_bwd.cu
+WKV_BWD_KERNEL_NAMES = WKV_BWD_PRODUCT_KERNELS + ("scan_kernel",)
 # Each train path's forward and backward kernels, as the profiler names
 # them (demangled), by the block its layers run.
 TRAIN_KERNELS = {
     "transformer": ("flash_attention", r"flash_kernel", "flash_attention_bwd", "|".join(BWD_KERNEL_NAMES)),
-    "rwkv6": ("wkv6", r"\b(wkv6|chunk)_kernel\b", "wkv6_bwd", r"\b(states|dv|drkw)_kernel\b"),
+    "rwkv6": ("wkv6", r"\b(wkv6|chunk)_kernel\b", "wkv6_bwd", r"\b(sums|scan|grads)_kernel\b"),
 }
 
 
@@ -1417,17 +1427,18 @@ def wkv_grad_operands(shape, dtype, seed, with_state, decays):
 
 
 def wkv_chunk_fault(args, want_dk, floor) -> float | None:
-    """grad_row_err of a planted fault: the first 64 tokens' dk misses the
-    state gradient that tokens 64..95 (one 32-token chunk) put in, what a
-    walk that skips one chunk's r dout^T would give.  None where T is too
-    short."""
-    if args[0].shape[1] < 128:
+    """grad_row_err of a planted fault: the first chunk's dk misses the
+    state gradient that the second chunk's tokens put in (BWD_CHUNK tokens
+    each), what a scan that skips one chunk's summary of r dout^T would
+    give.  None where T is too short."""
+    n = wkv6_mod.BWD_CHUNK
+    if args[0].shape[1] < 2 * n:
         return None
     dout_cut = args[6].clone()
-    dout_cut[:, 64:96] = 0
+    dout_cut[:, n:2 * n] = 0
     dk_cut = wkv6_bwd_plain(*args[:6], dout_cut, args[7])[1]
     fault = want_dk.clone()
-    fault[:, :64] = dk_cut[:, :64]
+    fault[:, :n] = dk_cut[:, :n]
     return grad_row_err(fault, want_dk, floor)
 
 
@@ -1486,16 +1497,19 @@ def check_wkv6_bwd(shapes, dtypes, decays="mild", against_f64: bool = False) -> 
 
 def phase_wkv6_bwd_resources() -> dict:
     """The wkv6 backward library's kernels: registers and spills from ptxas
-    (no spills; three kernels for each type pair and head_dim) and the
-    dr/dk/dw kernel's dynamic shared memory at every head_dim, from the
-    library itself (within the 227 KB a block may take)."""
+    (no spills; each product kernel for each type pair and head_dim, and
+    the scan) and the product kernels' dynamic shared memory at every
+    head_dim, from the library itself (within the 227 KB a block may
+    take)."""
     res, spilled = printed_resources("wkv6_bwd")
-    if len(res) != len(WKV_BWD_KERNEL_NAMES) * 4 * len(wkv6_mod.HEAD_DIMS) or spilled:
-        raise AssertionError(f"wkv6_bwd: {len(res)} kernels in the ptxas report, spills in {spilled}")
+    want = len(WKV_BWD_PRODUCT_KERNELS) * 4 * len(wkv6_mod.HEAD_DIMS) + 1
+    if len(res) != want or spilled:
+        raise AssertionError(f"wkv6_bwd: {len(res)} kernels in the ptxas report (want {want}), spills in {spilled}")
     fn = build.load("wkv6_bwd").wkv6_bwd_smem
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    smem = {f"hd {hd}": fn(hd) for hd in wkv6_mod.HEAD_DIMS}
-    print(f"  drkw_kernel dynamic shared memory (bytes): {smem}")
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    smem = {f"{name} hd {hd}": fn(hd, i) for i, name in enumerate(WKV_BWD_PRODUCT_KERNELS)
+            for hd in wkv6_mod.HEAD_DIMS}
+    print(f"  dynamic shared memory (bytes): {smem}")
     if max(smem.values()) > SMEM_PER_BLOCK or min(smem.values()) <= 0:
         raise AssertionError(f"wkv6_bwd's shared memory outside (0, {SMEM_PER_BLOCK}]: {smem}")
     short = {}
@@ -1507,8 +1521,24 @@ def phase_wkv6_bwd_resources() -> dict:
             tw = {"f": "float", "13__nv_bfloat16": "bfloat16"}.get(m.group(3), tr)
             short[f"{m.group(1)}<{tr},{tw},{m.group(4)}>"] = regs
         else:
-            short[mangled] = regs
+            short[re.sub(r".*\d(scan_kernel).*", r"\1", mangled)] = regs
     return {"registers": short, "smem_bytes": smem}
+
+
+# HMMA instructions in each instantiation of wkv6_bwd's product kernels, by
+# kernel, r, k, v's type and head_dim (w's type does not change them).
+WKV_BWD_HMMA = {
+    "sums_kernel": {"float": {8: 24, 16: 24, 32: 24, 64: 24}, "bfloat16": {8: 20, 16: 20, 32: 20, 64: 20}},
+    "grads_kernel": {"float": {8: 114, 16: 138, 32: 150, 64: 150}, "bfloat16": {8: 111, 16: 132, 32: 142, 64: 142}},
+}
+
+
+def wkv_bwd_hmma_pins() -> dict[str, int]:
+    """WKV_BWD_HMMA as patterns of the mangled names, each matching the two
+    instantiations of one (kernel, type, head_dim), for phase_tensor_cores."""
+    tr = {"float": "f(f|13__nv_bfloat16)", "bfloat16": "13__nv_bfloat16(f|S1_)"}
+    return {rf"{len(name)}{name}I{tr[dt]}Li{hd}E": n
+            for name, by_type in WKV_BWD_HMMA.items() for dt, by_hd in by_type.items() for hd, n in by_hd.items()}
 
 
 @contextlib.contextmanager
@@ -1618,7 +1648,7 @@ def phase_train_path(name: str, calls: Counter) -> dict:
     med = float(np.median(step_ms))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     reading = device_breakdown("one train step", lambda: step(params, opt, batches[-1], 1.0))
-    bwd_share = None
+    bwd_share, bwd_kernel_ms = None, {}
     if reading is not None:
         busy, wall, kernels = reading
         bwd = sum(t for t, _, key in kernels if re.search(bwd_re, key))
@@ -1629,6 +1659,8 @@ def phase_train_path(name: str, calls: Counter) -> dict:
         for t, n, key in kernels:
             if re.search(bwd_re, key):
                 print(f"      {t:10.3f} ms x{n:<5} {key[:90]}")
+                short = re.search(r"\w+_kernel(<[^>]*>)?", key)
+                bwd_kernel_ms[short.group(0) if short else key[:60]] = t / n
     print(
         f"  warm: train step {med:.3f} ms (median of {TRAIN_TIMED}; {', '.join(f'{t:.3f}' for t in step_ms)}), "
         f"{tokens / med * 1e3:.1f} tokens/s, peak memory {peak:.2f} GiB; {time.perf_counter() - t0:.2f} s"
@@ -1637,7 +1669,7 @@ def phase_train_path(name: str, calls: Counter) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "step_ms": med, "tokens_per_s": tokens / med * 1e3, "peak_gib": peak,
             "device_busy_share": None if reading is None else reading[0] / reading[1],
-            "bwd_share_of_device_time": bwd_share}
+            "bwd_share_of_device_time": bwd_share, "bwd_kernel_ms_per_call": bwd_kernel_ms}
 
 
 def phase_train_check() -> None:
@@ -1823,13 +1855,14 @@ def wkv_bwd_bound(key, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_wkv_train_times(calls: Counter) -> tuple[dict, list[dict]]:
+def phase_wkv_train_times(calls: Counter, step_kernel_ms: dict[str, float]) -> tuple[dict, list[dict]]:
     """Times of wkv6's backward kernels at each shape the train path called
     them with, beside their plain version and bound (no single PyTorch call
-    computes the function); the totals over one train step (each shape
-    times its calls a step) are the kernels line's numbers.  Also the
-    forward kernel at the same shapes, float32 (the token route), beside
-    its plain version and bound, returned per shape."""
+    computes the function), and each of its kernels' device time a call
+    from the train step's profile (``step_kernel_ms``); the totals over one
+    train step (each shape times its calls a step) are the kernels line's
+    numbers.  Also the forward kernel at the same shapes, float32 (the
+    token route), beside its plain version and bound, returned per shape."""
     rows = [(key, dtype, n // (TRAIN_TIMED + 1)) for (kname, key, dtype), n in calls.items() if kname == "wkv6_bwd"]
     tot, by_bytes, forward = Counter(), 0.0, []
     print("times of wkv6_bwd (ms per call, CUDA events) at the train path's shapes:")
@@ -1864,9 +1897,11 @@ def phase_wkv_train_times(calls: Counter) -> tuple[dict, list[dict]]:
         )
         forward.append(f)
         del args
+    print("  by kernel, device ms a call from the train step's profile: "
+          + ", ".join(f"{name} {ms:.6f}" for name, ms in step_kernel_ms.items()))
     out = {"ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
            "bound_by": "bytes" if by_bytes >= tot["bound_ms"] / 2 else "operations",
-           "library_ms": None, "graph_ms": tot["graph_ms"]}
+           "library_ms": None, "graph_ms": tot["graph_ms"], "ms_by_kernel": step_kernel_ms}
     print(f"  one train step ({sum(n for _, _, n in rows)} calls): " + ", ".join(
         f"{k2}={v2:.6f}" if isinstance(v2, float) else f"{k2}={v2}" for k2, v2 in out.items()))
     return out, forward
@@ -2322,6 +2357,10 @@ def main() -> int:
     bwd_dmma = phase("tensor cores: DMMA in the flash_attention_bwd library", phase_tensor_cores,
                      "flash_attention_bwd", "DMMA", None, {r"9dq_kernelI": 2 * len(fa_mod.HEAD_DIMS)})
     bwd_resources = phase("flash_attention_bwd: registers, spills, shared memory", phase_bwd_resources)
+    # Every instantiation (4 type pairs x 4 head_dims) of the backward's two
+    # product kernels runs mma.sync, each its pinned count; the scan has none.
+    wkv_bwd_hmma = phase("tensor cores: HMMA in the wkv6_bwd library", phase_tensor_cores, "wkv6_bwd", "HMMA",
+                         None, None, wkv_bwd_hmma_pins())
     wkv_bwd_resources = phase("wkv6_bwd: registers, spills, shared memory", phase_wkv6_bwd_resources)
     matmul_k = KERNELS[0]
     checks = {"block_matmul": phase("kernel vs plain: block_matmul", phase_kernel_vs_plain, matmul_k)}
@@ -2402,7 +2441,8 @@ def main() -> int:
     times = {"block_matmul": phase("times: block_matmul", phase_times, matmul_k)}
     times.update(phase("times: flash_attention and wkv6", phase_zoo_times, calls))
     times["flash_attention_bwd"], train_forward = phase("times: flash_attention_bwd", phase_train_times, train_calls)
-    times["wkv6_bwd"], wkv_train_forward = phase("times: wkv6_bwd", phase_wkv_train_times, train_calls)
+    times["wkv6_bwd"], wkv_train_forward = phase("times: wkv6_bwd", phase_wkv_train_times, train_calls,
+                                                 train["rwkv6-7b"]["bwd_kernel_ms_per_call"])
 
     line = []
     for k in KERNELS:
@@ -2439,7 +2479,7 @@ def main() -> int:
                                       if v["launches"][name]},
                 "shapes": sorted({str(key) for (k2, key, _dt) in train_calls if k2 == name}),
                 "registers": wkv_bwd_resources["registers"], "spills": 0,
-                "smem_bytes": wkv_bwd_resources["smem_bytes"]}
+                "smem_bytes": wkv_bwd_resources["smem_bytes"], "sass_hmma": wkv_bwd_hmma}
                if name == "wkv6_bwd" else {}),
         })
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.2f} s")

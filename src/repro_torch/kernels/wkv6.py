@@ -18,13 +18,14 @@ fixed; neither kernel stands in for the other.
 The gradient is a kernel too: when autograd records a CUDA call, ``wkv6``
 is the entry of the autograd function ``_WKV6``, whose forward is the
 kernel above and whose backward launches the hand-written ``wkv6_bwd``
-kernels (``csrc/wkv6_bwd.cu``: checkpoints of the state every
-``BWD_CHUNK`` tokens, then the reverse-time recurrence of the state's
-gradient on the CUDA cores, for every type and head_dim), with
-``wkv6_bwd_plain`` as their plain version.  The JAX package differentiates
-``models/rwkv.py::wkv_scan`` with XLA instead; it has no backward kernel.
-On CPU tensors ``wkv6`` computes ``wkv6_plain``, which autograd
-differentiates.
+kernels (``csrc/wkv6_bwd.cu``, for every type and head_dim): each chunk of
+``BWD_CHUNK`` tokens is summed on the tensor cores, a scan over the chunks
+writes checkpoints of the state and of its gradient, and each chunk's dr,
+dk, dv come from its two checkpoints as tensor-core products, with dw (the
+row sums of G_t * S_{t-1}) taken from the same products term by term.
+``wkv6_bwd_plain`` is their plain version.  The JAX package differentiates ``models/rwkv.py::wkv_scan``
+with XLA instead; it has no backward kernel.  On CPU tensors ``wkv6``
+computes ``wkv6_plain``, which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ from repro_torch.kernels import build
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (8, 16, 32, 64)   # the kernels' instantiations
 CHUNK_HEAD_DIMS = (64,)       # bfloat16 ones on the chunk kernel
-BWD_CHUNK = 32                # tokens between the backward's state checkpoints (CH in wkv6_bwd.cu)
+BWD_CHUNK = 64                # tokens a chunk of the backward, between its checkpoints (L in wkv6_bwd.cu)
 
 
 @functools.cache
@@ -240,10 +241,11 @@ def wkv6_bwd(
     r's dtype, dw in w's, du (H, hd) and d(state) (B, H, hd, hd) float32.
 
     On CUDA tensors (as the forward kernel takes them; dout and dfinal
-    float32 and contiguous) this launches the ``wkv6_bwd`` kernels on the
-    current stream and raises if it cannot; on CPU tensors it computes
-    ``wkv6_bwd_plain``.  ``wkv6_bwd.launches`` counts the calls that
-    launched them.
+    float32 and contiguous; r, k, v, w, dout, state and dfinal starting on
+    16-byte boundaries, or it raises ``ValueError``) this launches the
+    ``wkv6_bwd`` kernels on the current stream and raises if it cannot; on
+    CPU tensors it computes ``wkv6_bwd_plain``.  ``wkv6_bwd.launches``
+    counts the calls that launched them.
     """
     _check(r, k, v, w, u, state)
     b, t_len, h, hd = r.shape
@@ -259,13 +261,19 @@ def wkv6_bwd(
     _check_kernel(r, k, v, w, u, state)
     if not (dout.is_contiguous() and (dfinal is None or dfinal.is_contiguous())):
         raise ValueError("the wkv6 backward kernel takes contiguous dout and dfinal")
+    for name, a in (("r", r), ("k", k), ("v", v), ("w", w), ("dout", dout), ("state", state), ("dfinal", dfinal)):
+        if a is not None and a.data_ptr() % 16:
+            raise ValueError(f"the wkv6 backward kernels take 16-byte-aligned operands; {name} starts at "
+                             f"{a.data_ptr():#x}")
     kernel = _bwd_kernel()
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dw = torch.empty_like(w)
-    du_part = torch.empty((b, h, hd), dtype=torch.float32, device=r.device)
-    dstate = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
     n_chunks = -(-t_len // BWD_CHUNK)
-    ckpt = torch.empty((b, h, n_chunks, hd, hd), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((b, h, n_chunks, hd), dtype=torch.float32, device=r.device)
+    dstate = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    # The checkpoints of S and of G, (B, H, chunks, hd, hd) each, then the
+    # chunks' total decays (B, H, chunks, hd).
+    ckpt = torch.empty(b * h * n_chunks * hd * (2 * hd + 1), dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = kernel(
@@ -278,8 +286,8 @@ def wkv6_bwd(
     if err != 0:
         raise RuntimeError(f"wkv6_bwd launch failed with CUDA error {err}")
     wkv6_bwd.launches += 1
-    # du's per-(b, h) partials, summed over b in order (no atomics).
-    return dr, dk, dv, dw, du_part.sum(0), dstate
+    # du's per-(b, h, chunk) partials, summed in one fixed order (no atomics).
+    return dr, dk, dv, dw, du_part.sum((0, 2)), dstate
 
 
 wkv6_bwd.launches = 0

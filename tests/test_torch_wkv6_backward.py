@@ -15,14 +15,20 @@ its error norm over its norm in the reference, that norm floored at
 ``GRAD_ROW_FLOOR`` times the RMS row norm.
 
 ``wkv6_bwd_schedule_model`` is a float32 model of the kernels' schedule
-(``csrc/wkv6_bwd.cu``): checkpoints every ``CH`` tokens, the dv pass, the
-reverse walk over chunks with the state rebuilt from each checkpoint
-through sub-chunk starts every ``SUB`` tokens, and du's per-(b, h)
-partials summed over b in order.  A planted one-chunk fault must exceed
-the row limit.  Autograd through ``_WKV6`` runs here on CPU tensors with
-the plain versions (the plumbing the card runs); the CUDA kernels are held
-against the plain version by ``tests/test_torch_wkv6.py``'s card test and
-by ``chip_smoke.py``.
+(``csrc/wkv6_bwd.cu``): chunk summaries of ``L`` tokens as running
+products and products, the scan over chunks in both directions, and per
+chunk, from its two checkpoints, dr, dk, dv through the sub-block
+factorization (``SUB``-token sub-blocks) and dw term by term; du's
+per-(b, h, chunk) partials summed in one order.  It is held against the
+plain backward at ragged lengths, mild and strong decays, with and without
+a state and a final-state gradient; two planted faults (a chunk reading the
+previous chunk's S checkpoint; a chunk's dG left out of the scan) must
+exceed the row limit.  Pins on the source: no atomics, no division by w,
+no log or exp, each kernel launched, every head_dim dispatched, the
+products on ``mma``.  Autograd through ``_WKV6`` runs here on CPU tensors
+with the plain versions (the plumbing the card runs); the CUDA kernels are
+held against the plain version by ``tests/test_torch_wkv6.py``'s card test
+and by ``chip_smoke.py``.
 """
 import re
 from pathlib import Path
@@ -150,7 +156,7 @@ def _plain(r, k, v, w, u, s0, dout, dfinal):
 @pytest.mark.parametrize("kind", ["mild", "strong"])
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 def test_plain_backward_matches_jax_grad_of_wkv_scan(hd, kind, with_state):
-    # T = 150: ragged against the kernels' 32-token chunks, and long enough
+    # T = 150: ragged against the kernels' 64-token chunks, and long enough
     # for both strong-decay stretches (w = 0 at 37..56, w ~ 1 at 75..144).
     arrays = _inputs(2, 150, 2, hd, kind, seed=hd, with_state=with_state)
     got = _plain(*arrays)
@@ -247,85 +253,190 @@ def _source_constant(name: str) -> int:
     return int(re.search(rf"constexpr int {name} = (\d+);", SOURCE.read_text()).group(1))
 
 
-CH, SUB = _source_constant("CH"), _source_constant("SUB")
+L, SUB = _source_constant("L"), _source_constant("SUB")
+NSUB = L // SUB
 
 
-def wkv6_bwd_schedule_model(r, k, v, w, u, state, dout, dfinal, fault_chunk=None):
-    """The ``wkv6_bwd`` kernels' schedule in float32 torch: checkpoints of
-    S every CH tokens; dv from G carried backward alone; then the chunks in
-    reverse, each rebuilt forward from its checkpoint through the starts of
-    its SUB-token sub-chunks, and each sub-chunk rebuilt into its tokens'
-    states and walked in reverse against G; du's per-(b, h) partials summed
-    over b in order.  ``fault_chunk`` plants a fault: that chunk starts from
-    the previous chunk's checkpoint."""
+def _chunked(x, n_chunks, fill):
+    """(B, T, H, hd) -> (B, H, chunks, L, hd) in float32, rows past T set
+    to ``fill``."""
+    b, t_len, h, hd = x.shape
+    out = torch.full((b, h, n_chunks * L, hd), fill, dtype=torch.float32)
+    out[:, :, :t_len] = x.float().permute(0, 2, 1, 3)
+    return out.reshape(b, h, n_chunks, L, hd)
+
+
+def _blk(x, a):
+    """Rows of sub-block a (the second-last axis)."""
+    return x[..., a * SUB:(a + 1) * SUB, :]
+
+
+def wkv6_bwd_schedule_model(r, k, v, w, u, state, dout, dfinal, s_fault=None, g_fault=None):
+    """The ``wkv6_bwd`` kernels' schedule in float32 torch, every (b, h,
+    chunk) at once: the chunk summaries (running products of w, then dS
+    and dG as products); the scan of S forward and of G backward over the
+    chunks; per chunk, from the two checkpoints, dr, dk and dv through the
+    sub-block factorization (products between sub-blocks, running products
+    inside them) and dw as the row sums of G_t * S_{t-1} taken term by term
+    (each pair of a source of S and a source of G); du's per-(b, h, chunk)
+    partials summed in one order.  Planted faults: chunk ``s_fault`` reads
+    the previous chunk's S checkpoint; chunk ``g_fault``'s dG is left out
+    of the scan, so the G checkpoints of earlier chunks miss it."""
     b, t_len, h, hd = r.shape
-    rc, kc, vc, wc, do = (a.float().permute(0, 2, 1, 3) for a in (r, k, v, w, dout))   # (B, H, T, hd)
-    uu = u.float()[None]
-    zero = torch.zeros((b, h, hd, hd))
-    n_chunks = -(-t_len // CH)
+    nc = -(-t_len // L)
+    rc, kc, vc, dc = (_chunked(a, nc, 0.0) for a in (r, k, v, dout))
+    wc = _chunked(w, nc, 1.0)
+    uu = u.float()[None, :, None, None, :]
+    ones = torch.ones_like(wc[..., 0, :])
 
-    def step(s, t):
-        return wc[:, :, t, :, None] * s + kc[:, :, t, :, None] * vc[:, :, t, None, :]
+    # sums_kernel
+    pre, suf = torch.empty_like(wc), torch.empty_like(wc)
+    p = ones
+    for t in range(L):
+        pre[..., t, :] = p
+        p = p * wc[..., t, :]
+    total = p
+    p = ones
+    for t in reversed(range(L)):
+        suf[..., t, :] = p
+        p = p * wc[..., t, :]
+    d_s = (kc * suf).transpose(-1, -2) @ vc
+    d_g = (rc * pre).transpose(-1, -2) @ dc
 
-    ckpt, s = [], zero if state is None else state.float()
-    for c in range(n_chunks):
-        ckpt.append(s)
-        if c < n_chunks - 1:
-            for t in range(c * CH, (c + 1) * CH):
-                s = step(s, t)
+    # scan_kernel
+    s = torch.zeros((b, h, hd, hd)) if state is None else state.float()
+    ck_s = []
+    for c in range(nc):
+        ck_s.append(s)
+        s = total[:, :, c, :, None] * s + d_s[:, :, c]
+    g = torch.zeros((b, h, hd, hd)) if dfinal is None else dfinal.float()
+    ck_g = [None] * nc
+    for c in reversed(range(nc)):
+        ck_g[c] = g
+        g = total[:, :, c, :, None] * g + (0.0 if c == g_fault else d_g[:, :, c])
+    dstate = g
+    if s_fault is not None:
+        ck_s[s_fault] = ck_s[s_fault - 1]
+    sc, gc = torch.stack(ck_s, 2), torch.stack(ck_g, 2)
 
-    dv = torch.empty_like(rc)
-    g = zero if dfinal is None else dfinal.float()
-    for t in reversed(range(t_len)):
-        bonus = (rc[:, :, t] * uu)[..., None] * do[:, :, t, None, :]
-        dv[:, :, t] = ((g + bonus) * kc[:, :, t, :, None]).sum(-2)
-        g = wc[:, :, t, :, None] * g + rc[:, :, t, :, None] * do[:, :, t, None, :]
+    # grads_kernel.  pf_t = P(p..t-1), pb_s = P(s+1..e) inside a sub-block;
+    # f[a][b] = T_b ... T_{a-1}, the sub-block totals' products.
+    pf, pb = torch.empty_like(wc), torch.empty_like(wc)
+    tot = []
+    for a in range(NSUB):
+        p = ones
+        for q in range(SUB):
+            pf[..., a * SUB + q, :] = p
+            p = p * wc[..., a * SUB + q, :]
+        tot.append(p)
+        p = ones
+        for q in reversed(range(SUB)):
+            pb[..., a * SUB + q, :] = p
+            p = p * wc[..., a * SUB + q, :]
+    f = [[ones] * (a + 1) for a in range(NSUB + 1)]
+    for a in range(NSUB + 1):
+        for bb in reversed(range(a)):
+            f[a][bb] = f[a][bb + 1] * tot[bb]
+    rh, kh = rc * pf, kc * pb
+    da = dc @ vc.transpose(-1, -2)                                 # dA[t][s] = dout_t . v_s
+    am = torch.zeros_like(da)
+    for a in range(NSUB):
+        for bb in range(a):
+            am[..., a * SUB:(a + 1) * SUB, bb * SUB:(bb + 1) * SUB] = (
+                (_blk(rh, a) * f[a][bb + 1][..., None, :]) @ _blk(kh, bb).transpose(-1, -2))
+    for t in range(L):
+        p0 = t - t % SUB
+        am[..., t, t] = (rc[..., t, :] * uu[..., 0, :] * kc[..., t, :]).sum(-1)
+        q = rc[..., t, :]
+        for s_ in reversed(range(p0, t)):
+            am[..., t, s_] = (q * kc[..., s_, :]).sum(-1)
+            q = q * wc[..., s_, :]
+    q1, q2 = dc @ sc.transpose(-1, -2), vc @ gc.transpose(-1, -2)  # dout S_c^T, v G_c^T
+    dv = am.transpose(-1, -2) @ dc
+    d_acc, e_acc = torch.empty_like(rc), torch.empty_like(rc)     # S before the sub-block . dout, G after it . v
+    w_pairs = {}
+    for a in range(NSUB):
+        rows = slice(a * SUB, (a + 1) * SUB)
+        dv[..., rows, :] += (_blk(kh, a) * f[NSUB][a + 1][..., None, :]) @ gc
+        d_acc[..., rows, :] = f[a][0][..., None, :] * _blk(q1, a)
+        for bb in range(a):
+            part = da[..., rows, bb * SUB:(bb + 1) * SUB] @ _blk(kh, bb)
+            d_acc[..., rows, :] += f[a][bb + 1][..., None, :] * part
+            if a - bb >= 2:
+                w_pairs[a, bb] = (_blk(rh, a) * part).sum(-2)
+        e_acc[..., rows, :] = f[NSUB][a + 1][..., None, :] * _blk(q2, a)
+        for cc in range(a + 1, NSUB):
+            part = da[..., cc * SUB:(cc + 1) * SUB, rows].transpose(-1, -2) @ _blk(rh, cc)
+            e_acc[..., rows, :] += f[cc][a + 1][..., None, :] * part
+    vd = torch.diagonal(da, dim1=-2, dim2=-1)[..., None]            # v_t . dout_t
+    dr = pf * d_acc + uu * kc * vd
+    dk = pb * e_acc + rc * uu * vd
+    du_part = (rc * kc * vd).sum(-2)
+    for t in range(L):
+        p0 = t - t % SUB
+        p = ones
+        for s_ in reversed(range(p0, t)):
+            dr[..., t, :] += da[..., t, s_, None] * kc[..., s_, :] * p
+            p = p * wc[..., s_, :]
+        p = ones
+        for t2 in range(t + 1, p0 + SUB):
+            dk[..., t, :] += da[..., t2, t, None] * rc[..., t2, :] * p
+            p = p * wc[..., t2, :]
 
-    dr, dk, dw = (torch.empty_like(rc) for _ in range(3))
-    du_part = torch.zeros((b, h, hd))
-    g = zero if dfinal is None else dfinal.float()
-    for c in reversed(range(n_chunks)):
-        t0, n = c * CH, min(CH, t_len - c * CH)
-        s = ckpt[c - 1 if c == fault_chunk else c]
-        subs = []
-        for t in range(t0, t0 + n):
-            if (t - t0) % SUB == 0:
-                subs.append(s)
-            s = step(s, t)
-        for q in reversed(range(len(subs))):
-            ss = [subs[q]]
-            for j in range(1, SUB):
-                t = t0 + q * SUB + j - 1
-                ss.append(step(ss[-1], t) if t < t_len else ss[-1])
-            for j in reversed(range(SUB)):
-                t = t0 + q * SUB + j
-                if t >= t0 + n:
-                    continue
-                prev, d_t = ss[j], do[:, :, t]
-                vd = (vc[:, :, t] * d_t).sum(-1, keepdim=True)
-                dr[:, :, t] = (prev * d_t[..., None, :]).sum(-1) + uu * kc[:, :, t] * vd
-                dk[:, :, t] = (g * vc[:, :, t, None, :]).sum(-1) + rc[:, :, t] * uu * vd
-                dw[:, :, t] = (g * prev).sum(-1)
-                du_part += rc[:, :, t] * kc[:, :, t] * vd
-                g = wc[:, :, t, :, None] * g + rc[:, :, t, :, None] * d_t[..., None, :]
-    du = du_part[0]
-    for i in range(1, b):
-        du = du + du_part[i]
-    back = (a.permute(0, 2, 1, 3) for a in (dr, dk, dv, dw))
-    return (*back, du, g)
+    # dw_t = rowsum(G_t * S_{t-1}).  For t in sub-block a with S^a the state
+    # before the sub-block and G^a its gradient after it: pf_t pb_t
+    # rowsum(S^a * G^a), plus pf_t sum_{s>t in a} P(t+1..s-1) r_s D_s, plus
+    # pb_t sum_{s<t in a} P(s+1..t-1) k_s E_s, plus the pairs of a k_s v_s^T
+    # and an r_s' dout_s'^T both inside the sub-block (s < t < s').
+    rq1 = [(_blk(rh, a) * _blk(q1, a)).sum(-2) for a in range(NSUB)]
+    kq2 = [(_blk(kh, a) * _blk(q2, a)).sum(-2) for a in range(NSUB)]
+    rs_c = (sc * gc).sum(-1)
+    dw = torch.empty_like(rc)
+    for a in range(NSUB):
+        rs_a = f[a][0] * f[NSUB][a + 1] * rs_c
+        for cc in range(a + 1, NSUB):
+            rs_a = rs_a + f[a][0] * f[cc][a + 1] * rq1[cc]
+        for bb in range(a):
+            rs_a = rs_a + f[NSUB][a + 1] * f[a][bb + 1] * kq2[bb]
+            for cc in range(a + 1, NSUB):
+                rs_a = rs_a + f[a][bb + 1] * f[cc][a + 1] * w_pairs[cc, bb]
+        p0, e = a * SUB, (a + 1) * SUB
+        z = torch.zeros_like(ones)
+        later = {}
+        for t in reversed(range(p0, e)):
+            later[t] = z
+            z = wc[..., t, :] * z + rc[..., t, :] * d_acc[..., t, :]
+        z = torch.zeros_like(ones)
+        m = {s_: torch.zeros_like(ones) for s_ in range(p0, e)}   # sum_{s<t} P(s+1..t-1) k_s dA[s'][s]
+        for t in range(p0, e):
+            inner, p = torch.zeros_like(ones), ones
+            for s2 in range(t + 1, e):
+                inner = inner + p * rc[..., s2, :] * m[s2]
+                p = p * wc[..., s2, :]
+            dw[..., t, :] = (pf[..., t, :] * pb[..., t, :] * rs_a + pf[..., t, :] * later[t]
+                             + pb[..., t, :] * z + inner)
+            z = wc[..., t, :] * z + kc[..., t, :] * e_acc[..., t, :]
+            for s2 in range(t + 1, e):
+                m[s2] = wc[..., t, :] * m[s2] + kc[..., t, :] * da[..., s2, t, None]
+
+    def back(x):
+        return x.reshape(b, h, nc * L, hd)[:, :, :t_len].permute(0, 2, 1, 3)
+
+    return (*(back(x) for x in (dr, dk, dv, dw)), du_part.sum((0, 2)), dstate)
 
 
+@pytest.mark.parametrize("with_state", [False, True], ids=["zero-state", "state-and-dfinal"])
 @pytest.mark.parametrize("kind", ["mild", "strong"])
-@pytest.mark.parametrize("b,t,h,hd", [(2, 150, 2, 16), (1, 97, 3, 8), (3, 31, 1, 32)])
-def test_schedule_model_matches_the_plain_backward(b, t, h, hd, kind):
-    arrays = [_t(a) for a in _inputs(b, t, h, hd, kind, seed=b * t)]
+@pytest.mark.parametrize("b,t,h,hd", [(2, 150, 2, 16), (1, 97, 3, 8), (3, 31, 1, 32), (1, 200, 1, 64)])
+def test_schedule_model_matches_the_plain_backward(b, t, h, hd, kind, with_state):
+    arrays = [_t(a) for a in _inputs(b, t, h, hd, kind, seed=b * t, with_state=with_state)]
     _check(wkv6_bwd_schedule_model(*arrays), wkv6_bwd_plain(*arrays))
 
 
 def test_a_one_chunk_fault_exceeds_the_row_limit():
     arrays = [_t(a) for a in _inputs(2, 150, 2, 16, "mild", seed=5)]
     want = wkv6_bwd_plain(*arrays)
-    fault = wkv6_bwd_schedule_model(*arrays, fault_chunk=2)
+    fault = wkv6_bwd_schedule_model(*arrays, s_fault=2)
     floor = row_floor(*want[:4])
     errs = [row_err(g, w_, floor) for g, w_ in zip(fault[:4], want[:4])]
     assert errs[0] > 10 * ROW_TOL and errs[3] > 10 * ROW_TOL, errs   # dr and dw see the wrong state
@@ -333,19 +444,55 @@ def test_a_one_chunk_fault_exceeds_the_row_limit():
         _check(fault, want)
 
 
+def test_a_g_checkpoint_missing_its_chunk_summary_exceeds_the_row_limit():
+    """Chunk 2's dG left out of the scan: the G checkpoints of chunks 0 and
+    1 miss it, so their dk, dv and dw (which read G) pass the row limit.
+    dr reads S alone, so it stays right, as does everything of chunks 2
+    and 3."""
+    arrays = [_t(a) for a in _inputs(2, 200, 2, 16, "mild", seed=6)]
+    want = wkv6_bwd_plain(*arrays)
+    fault = wkv6_bwd_schedule_model(*arrays, g_fault=2)
+    floor = row_floor(*want[:4])
+    early, late = slice(0, 2 * L), slice(2 * L, None)
+    errs = {name: row_err(g[:, early], w_[:, early], floor)
+            for name, g, w_ in zip(("dr", "dk", "dv", "dw"), fault[:4], want[:4])}
+    assert min(errs["dk"], errs["dv"], errs["dw"]) > 10 * ROW_TOL, errs
+    assert errs["dr"] <= ROW_TOL, errs
+    for g, w_ in zip(fault[:4], want[:4]):
+        assert row_err(g[:, late], w_[:, late], floor) <= ROW_TOL
+    with pytest.raises(AssertionError):
+        _check(fault, want)
+
+
 def test_bwd_chunk_mirrors_the_source():
-    assert wkv6_mod.BWD_CHUNK == CH
-    assert CH % SUB == 0
+    assert wkv6_mod.BWD_CHUNK == L
+    assert L % SUB == 0
+
+
+def _code() -> str:
+    return "\n".join(line.split("//")[0] for line in SOURCE.read_text().splitlines())
 
 
 def test_source_has_no_atomics_and_never_divides_by_a_decay():
-    code = "\n".join(line.split("//")[0] for line in SOURCE.read_text().splitlines())
+    code = _code()
     assert not re.search(r"atomic", code)
     assert not re.search(r"/\s*w", code) and not re.search(r"\blog2?f?\s*\(", code)
-    for kernel in ("states_kernel", "dv_kernel", "drkw_kernel"):
+    assert not re.search(r"\b(exp2?f?|__expf|ex2)\b", code)   # every factor a product of w
+
+
+def test_source_launches_each_kernel_and_dispatches_every_head_dim():
+    code = _code()
+    for kernel in ("sums_kernel", "grads_kernel"):
         assert re.search(rf"{kernel}<TR, TW, HD><<<", code), kernel
+    assert re.search(r"scan_kernel<<<", code)
     for hd in HEAD_DIMS:
         assert re.search(rf"case {hd}: return launch<TR, TW, {hd}>", code), hd
+
+
+def test_source_runs_its_products_on_the_tensor_cores():
+    code = _code()
+    assert re.search(r"tf32::mma\(", code) and "mma_split<" in code
+    assert "cp_async16(" in code
 
 
 # --------------------------------------------------------------------------

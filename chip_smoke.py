@@ -23,10 +23,13 @@ and prints no result line):
    every instantiation of the backward's product kernels (stats, dK/dV,
    dQ) must have ``HMMA`` and every dQ one ``DMMA``; the backward's
    kernels must not spill, and each one's shared memory at every head_dim
-   and type must fit 227 KB; wkv6_bwd's kernels (chunk summaries, the scan
-   over chunks, per-chunk gradients) likewise, and each instantiation of
-   its two product kernels must have exactly its count of ``HMMA``
-   (``WKV_BWD_HMMA``);
+   and type must fit 227 KB; the wkv6 library likewise, with each of its
+   four chunk-kernel instantiations (r, k, v and w in float32 or
+   bfloat16) holding exactly its count of ``HMMA`` (``WKV_HMMA``) and no
+   token-kernel instantiation at head_dim 64 left; wkv6_bwd's kernels
+   (chunk summaries, the scan over chunks, per-chunk gradients) likewise,
+   and each instantiation of its two product kernels must have exactly its
+   count of ``HMMA`` (``WKV_BWD_HMMA``);
 3. kernel vs plain: each kernel's wrapper on the card at the reference's
    test shapes and ragged ones (``block_matmul`` also at the serving path's
    shapes and, in bfloat16, at ragged tensor-core tiles and 4096^3), held
@@ -67,6 +70,10 @@ and prints no result line):
    and a planted one-tile fault in dk past the limit; at the train shapes
    also the kernel's and the float32 plain version's row errors against
    the plain version in float64, and the same for the forward kernel; then
+   wkv6's float32 forward at rwkv6-7b's train shape (2, 2048, 64, 64) per
+   row of out and of the final state (``GRAD_ROW_TOL``, floored as below,
+   with a planted one-chunk fault past the limit), beside both its and the
+   float32 plain version's row errors against float64; then
    wkv6's backward kernels against ``wkv6_bwd_plain`` at the wkv6 test and
    ragged shapes and at rwkv6-7b's train shape (2, 2048, 64, 64), float32
    and bfloat16, at mild and strong decays, from a zero state and from a
@@ -113,7 +120,7 @@ and prints no result line):
     backward's bound at the float32 rate and at the split-TF32 rate
     (495 / 3 TFLOP/s), and the float32 forward kernel at the train shapes
     beside its plain version, SDPA's float32 forward and its bounds at the
-    same two rates; wkv6_bwd and the float32 wkv6 forward (token route) at
+    same two rates; wkv6_bwd and the float32 wkv6 forward (chunk route) at
     rwkv6-7b's train shape beside their plain versions and bounds.
 
 Phases 8-12 run torch ops, not hand kernels (the reference jits them; none
@@ -448,6 +455,57 @@ def phase_fwd_resources() -> dict:
     return {"registers": short, "smem_bytes": smem}
 
 
+# The wkv6 library's kernels as the SASS and ptxas name them: the chunk
+# kernel (tc::chunk_kernel<TR, TW>) and the token kernel
+# (wkv6_kernel<TR, TW, hd>).  HMMA instructions in each chunk-kernel
+# instantiation, by r, k, v's type (w's type does not change them): the
+# float32 one splits v in A v and (K^ F)^T v, a third product each.
+WKV_CHUNK_KERNEL = r"2tc12chunk_kernelI"
+WKV_TOKEN_KERNEL = r"11wkv6_kernelI"
+WKV_HMMA = {"float": 120, "bfloat16": 104}
+
+
+def wkv_hmma_pins() -> dict[str, int]:
+    """WKV_HMMA as patterns of the mangled names, each matching the two
+    instantiations of one r, k, v type, for phase_tensor_cores."""
+    return {rf"{WKV_CHUNK_KERNEL}{'f' if dt == 'float' else '13__nv_bfloat16'}": n for dt, n in WKV_HMMA.items()}
+
+
+def phase_wkv6_resources() -> dict:
+    """The wkv6 library's kernels: registers and spills from ptxas (no
+    spills; the chunk kernel for each of the four type pairs, the token
+    kernel at head_dims 8, 16 and 32 alone) and the chunk kernel's dynamic
+    shared memory for each type pair, from the library itself (within the
+    227 KB a block may take)."""
+    res, spilled = printed_resources("wkv6")
+    chunk = [fn_name for fn_name in res if re.search(WKV_CHUNK_KERNEL, fn_name)]
+    token = [fn_name for fn_name in res if re.search(WKV_TOKEN_KERNEL, fn_name)]
+    token_dims = sorted({int(re.search(r"Li(\d+)E", fn_name).group(1)) for fn_name in token})
+    small = [hd for hd in wkv6_mod.HEAD_DIMS if wkv_route(torch.float32, hd) == "token"]
+    if spilled or len(chunk) != 4 or len(token) != 4 * len(small) or token_dims != small:
+        raise AssertionError(f"wkv6: spills in {spilled}, {len(chunk)} chunk kernels (want 4), token kernels at "
+                             f"head_dims {token_dims} (want {small}, four type pairs each)")
+    fn = build.load("wkv6").wkv6_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    types = ("float32", "bfloat16")
+    smem = {f"r,k,v {rkv} w {w}": fn(int(rkv == "bfloat16"), int(w == "bfloat16")) for rkv in types for w in types}
+    print(f"  chunk kernel's dynamic shared memory (bytes): {smem}")
+    if max(smem.values()) > SMEM_PER_BLOCK or min(smem.values()) <= 0:
+        raise AssertionError(f"wkv6's shared memory outside (0, {SMEM_PER_BLOCK}]: {smem}")
+    short = {}
+    for mangled, (regs, _) in res.items():
+        m = re.search(rf"({WKV_CHUNK_KERNEL}|{WKV_TOKEN_KERNEL})(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)(Li(\d+)E)?",
+                      mangled)
+        if not m:
+            short[mangled] = regs
+            continue
+        tr = "float" if m.group(2) == "f" else "bfloat16"
+        tw = {"f": "float", "13__nv_bfloat16": "bfloat16"}.get(m.group(3), tr)
+        name = "tc::chunk_kernel" if m.group(1) == WKV_CHUNK_KERNEL else "wkv6_kernel"
+        short[f"{name}<{tr},{tw}{',' + m.group(5) if m.group(5) else ''}>"] = regs
+    return {"registers": short, "smem_bytes": smem}
+
+
 def phase_kernel_vs_plain(kernel: dict) -> dict:
     """Hold the kernel against its plain version; returns what the kernels
     line reports: the largest error on the main path's (float32) shapes,
@@ -749,8 +807,9 @@ FLASH_RAGGED_SHAPES = [
     (1, 300, 4, 1, 96, 17), (2, 2047, 8, 2, 96, 512),
 ]
 # (B, T, H, hd): TestWKV6's shapes and property-sweep sample, and ragged ones.
-WKV_TEST_SHAPES = [(1, 64, 2, 16), (2, 32, 2, 8), (1, 16, 1, 8), (1, 128, 4, 32)]
-WKV_RAGGED_SHAPES = [(1, 1, 2, 64), (1, 37, 3, 32), (3, 100, 4, 64), (2, 33, 64, 64)]
+# hd 64 (the chunk route) also at one whole chunk and at a ragged one.
+WKV_TEST_SHAPES = [(1, 64, 2, 16), (2, 32, 2, 8), (1, 16, 1, 8), (1, 128, 4, 32), (1, 64, 2, 64)]
+WKV_RAGGED_SHAPES = [(1, 1, 2, 64), (1, 37, 3, 32), (3, 100, 4, 64), (2, 33, 64, 64), (1, 37, 3, 64)]
 
 
 def flash_operands(shape, dtype, seed):
@@ -1495,6 +1554,60 @@ def check_wkv6_bwd(shapes, dtypes, decays="mild", against_f64: bool = False) -> 
     return worst
 
 
+WKV_FWD_CHUNK = 64   # tokens a chunk of wkv6's chunk route (CL in wkv6.cu)
+
+
+def check_wkv6_rows(shape, decays) -> float:
+    """The float32 forward at ``shape`` against its plain version per row of
+    out and of the final state, from a zero and from a random state: each
+    row's error over its norm, floored at GRAD_ROW_FLOOR of the RMS row
+    norm, within GRAD_ROW_TOL, all finite; a planted one-chunk fault (the
+    third chunk's outputs and the final state as if the second and the last
+    chunk's k v^T never reached the state) must exceed that limit.  Also
+    prints the kernel's and the float32 plain version's row errors against
+    the plain version in float64 (a reading).  Returns the largest absolute
+    error."""
+    n, tol, worst = WKV_FWD_CHUNK, GRAD_ROW_TOL[torch.float32], 0.0
+    if shape[1] < 4 * n:
+        raise ValueError(f"the one-chunk fault needs T >= {4 * n}, got {shape}")
+    for i, with_state in enumerate((False, True)):
+        args = wkv_operands(shape, torch.float32, seed=i, with_state=with_state, decays=decays)
+        got = wkv6(*args)
+        torch.cuda.synchronize()
+        want = wkv6_plain(*args)
+        floors = [grad_row_floor([x]) for x in want]
+        errs = [grad_row_err(a, b, f) for a, b, f in zip(got, want, floors)]
+        abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        v_cut = args[2].clone()
+        v_cut[:, n:2 * n] = 0
+        v_cut[:, -n:] = 0
+        cut_out, cut_state = wkv6_plain(*args[:2], v_cut, *args[3:])
+        fault_out = want[0].clone()
+        fault_out[:, 2 * n:3 * n] = cut_out[:, 2 * n:3 * n]
+        fault = [grad_row_err(fault_out, want[0], floors[0]), grad_row_err(cut_state, want[1], floors[1])]
+        exact = wkv6_plain(*(None if a is None else a.double() for a in args))
+        floors64 = [grad_row_floor([x]) for x in exact]
+        kern = [grad_row_err(a, b, f) for a, b, f in zip(got, exact, floors64)]
+        plain = [grad_row_err(a, b, f) for a, b, f in zip(want, exact, floors64)]
+        ok = finite and max(errs) <= tol
+        print(
+            f"  wkv6 r,k,v float32 (B,T,H,hd)={shape} {wkv_route(torch.float32, shape[3])} {decays} decays, "
+            f"{'random' if with_state else 'zero'} state: row_rel_err out={errs[0]:.3e} state={errs[1]:.3e} "
+            f"tol={tol} max_abs_err={abs_err:.3e} finite={finite} one-chunk fault out={fault[0]:.3e} "
+            f"state={fault[1]:.3e} {'ok' if ok else 'MISMATCH'}\n"
+            f"    against float64: kernel out={kern[0]:.3e} state={kern[1]:.3e}; "
+            f"float32 plain out={plain[0]:.3e} state={plain[1]:.3e}"
+        )
+        if not ok:
+            raise AssertionError(f"wkv6 rows disagree with its plain version at {shape} ({decays} decays)")
+        if min(fault) <= tol:
+            raise AssertionError(f"GRAD_ROW_TOL cannot see a one-chunk wkv6 fault at {shape}: {fault}")
+        worst = max(worst, abs_err)
+        del got, want, exact, cut_out, cut_state, fault_out
+    return worst
+
+
 def phase_wkv6_bwd_resources() -> dict:
     """The wkv6 backward library's kernels: registers and spills from ptxas
     (no spills; each product kernel for each type pair and head_dim, and
@@ -1862,7 +1975,8 @@ def phase_wkv_train_times(calls: Counter, step_kernel_ms: dict[str, float]) -> t
     from the train step's profile (``step_kernel_ms``); the totals over one
     train step (each shape times its calls a step) are the kernels line's
     numbers.  Also the forward kernel at the same shapes, float32 (the
-    token route), beside its plain version and bound, returned per shape."""
+    route ``wkv_route`` names: the chunk kernel at head_dim 64), beside its
+    plain version and bound, returned per shape."""
     rows = [(key, dtype, n // (TRAIN_TIMED + 1)) for (kname, key, dtype), n in calls.items() if kname == "wkv6_bwd"]
     tot, by_bytes, forward = Counter(), 0.0, []
     print("times of wkv6_bwd (ms per call, CUDA events) at the train path's shapes:")
@@ -2347,7 +2461,11 @@ def main() -> int:
     fwd_hmma = phase("tensor cores: HMMA in the flash_attention library", phase_tensor_cores, "flash_attention",
                      "HMMA", None, {FWD_MMA_KERNEL: n_mma})
     fwd_resources = phase("flash_attention: registers, spills, shared memory", phase_fwd_resources)
-    hmma = phase("tensor cores: HMMA in the wkv6 library", phase_tensor_cores, "wkv6", "HMMA")
+    # Each chunk-kernel instantiation (r, k, v and w in float32 or bfloat16)
+    # runs mma.sync, its pinned count; the token kernel has none.
+    hmma = phase("tensor cores: HMMA in the wkv6 library", phase_tensor_cores, "wkv6", "HMMA",
+                 None, {WKV_CHUNK_KERNEL: 4}, wkv_hmma_pins())
+    wkv_resources = phase("wkv6: registers, spills, shared memory", phase_wkv6_resources)
     # Every instantiation (2 types x 6 head_dims) of the backward's product
     # kernels runs mma.sync; the reduction kernel has no product.
     bwd_hmma = phase("tensor cores: HMMA in the flash_attention_bwd library", phase_tensor_cores,
@@ -2404,6 +2522,9 @@ def main() -> int:
     checks["flash_attention_bwd"] = {"max_abs_err": phase(
         "kernel vs plain: flash_attention_bwd at the train path's shapes", check_flash_bwd,
         TRAIN_BWD_SHAPES, (torch.float32,), True)}
+    for decays in ("mild", "strong"):
+        phase(f"kernel vs plain: wkv6 per row at the train path's shape, {decays} decays, and against float64",
+              check_wkv6_rows, WKV_TRAIN_SHAPE, decays)
     for decays in ("mild", "strong"):
         phase(f"kernel vs plain: wkv6_bwd, test and ragged shapes, {decays} decays", check_wkv6_bwd,
               WKV_TEST_SHAPES + WKV_RAGGED_SHAPES, (torch.float32, torch.bfloat16), decays)
@@ -2467,6 +2588,7 @@ def main() -> int:
                    if v["launches"]["flash_attention"]},
                 "routes": flash_routes, "train_forward_f32": train_forward} if name == "flash_attention" else {}),
             **({"sass_hmma": hmma, "routes": wkv_routes, "train_forward_f32": wkv_train_forward,
+                "registers": wkv_resources["registers"], "smem_bytes": wkv_resources["smem_bytes"],
                 "launches_by_path": {n: v["wkv6"] for n, v in zoo_launches.items() if "wkv6" in v}
                 | {f"train {n}": v["launches"]["wkv6"] for n, v in train.items() if v["launches"]["wkv6"]}}
                if name == "wkv6" else {}),

@@ -15,30 +15,32 @@
 // float32; out is (B, T, H, hd) float32 and the state (B, H, hd, hd)
 // float32, S[i][j] with i over k and j over v.  w = 0 and w -> 1 are legal.
 //
-// Two routes, fixed by type and head size (kernels/wkv6.py::route mirrors
-// this dispatch; neither gives way to the other at run time):
+// Two routes, fixed by head size (kernels/wkv6.py::route mirrors this
+// dispatch; neither gives way to the other at run time):
 //
-//   r, k, v bfloat16, hd 64      -> chunk kernel (tc::chunk_kernel), a chunk
+//   hd 64, r, k, v float32 or bfloat16
+//                                -> chunk kernel (tc::chunk_kernel), a chunk
 //                                   of 64 tokens at a time, its products on
 //                                   the tensor cores
-//   every float32 shape; bfloat16 at hd 8, 16, 32
-//                                -> token kernel (wkv6_kernel), the exact
+//   hd 8, 16, 32                 -> token kernel (wkv6_kernel), the exact
 //                                   recurrence one token at a time on the
-//                                   CUDA cores
+//                                   CUDA cores (the reduced models' sizes)
 //
 // What bounds it.  On the serving path (rwkv6-7b: B = 2, T = 2048, H = 64,
 // hd = 64, r, k, v bfloat16, w float32) a call reads r, k, v, w and the
 // state and writes out and the final state: 0.0714 ms at 3.35 TB/s, as
 // chip_smoke.py's wkv_bound reckons it.  Its 5 hd^2 operations per token
 // and head take 0.0054 ms at the bfloat16 tensor-core rate, so the bound is
-// the bytes.  What kept the token kernel at about 11 times that bound is
-// the serial chain: 2048 dependent token steps per block, one block per SM.
-// The chunk kernel's chain is 32 dependent chunk steps, each of them wide.
+// the bytes.  On the train path (the same shape, r, k, v and w float32) the
+// bytes take 0.1014 ms and the operations 0.080 ms at the float32 rate.
+// What kept the token kernel at 8 to 11 times those bounds is the serial
+// chain: 2048 dependent token steps per block, one block per SM.  The chunk
+// kernel's chain is 32 dependent chunk steps, each of them wide.
 //
 // Token kernel.  The recurrence is parallel over the state's columns:
 // column j of S evolves with v_t[j] alone.  One block owns one (b, h) and
 // 4*hd threads; thread (j, g) keeps rows g, g+4, g+8, ... of column j in
-// registers (16 floats at hd = 64) and the four partial dot products
+// registers (8 floats at hd = 32) and the four partial dot products
 // r_t . S[:, j] meet through two warp shuffles.  The block walks T in
 // chunks of 32 tokens: each chunk's r, k, v, w are staged in shared memory
 // with coalesced loads, the bonus r_t . (u * k_t) of each token is reduced
@@ -93,21 +95,26 @@
 // accumulators).  One TF32 rounding of each operand (2^-11) leaves errors of
 // 2e-2 at the path's sizes, ten times the 2e-3 tolerance, so each operand
 // that is not exact in TF32 is split into a high and a low TF32 part and a
-// product takes hi*hi + hi*lo + lo*hi (two of them when one side is v, whose
-// bfloat16 values are exact in TF32): float32 accuracy at three (or two)
-// times the tensor-core work.
+// product takes hi*hi + hi*lo + lo*hi: float32 accuracy at three times the
+// tensor-core work.  Every operand but v is a float32 value whatever the
+// input type (a decayed r or k, A, S).  v is exact in TF32 when it is
+// bfloat16, and A v and (K^ F)^T v then take two products (hi*v + lo*v);
+// float32 v is split as well, and they take three.
 //
 // Work and loads.  Per chunk: phase 1 (all warps) forms R^, K^, R', K', v in
-// float32, T, U, G; then F; phase 2 splits the warps: warps 0-7 build A
-// (the running products inside groups, then the 12 group-pair and the 6
+// float32, T, U, G; then F (warps 0-7) while warps 8-15 bring chunk c + 1's
+// v into the stage; phase 2 splits the warps: warps 0-7 build A (the
+// running products inside groups, then the 12 group-pair and the 6
 // sub-block-pair tiles) while warps 8-15 form (R^ F) S into their output
 // tiles and S' into their state tiles; phase 3: warps 8-15 add A v and
-// store out, while warps 0-7 bring chunk c + 1's r, k, v and w into the
-// other stage of a two-stage ring with 16-byte cp.async copies (rows past T
-// zero-filled, so they count as k = v = 0 and w = 1).  cp.async needs r, k,
-// v and w to start on 16-byte boundaries.  Shared memory is 214.5 KB per
-// block (one block per SM), set once per device so that a launch captured
-// into a CUDA graph is the launch alone.
+// store out, while warps 0-7 bring chunk c + 1's r, k and w into the stage.
+// The copies are 16-byte cp.async (rows past T zero-filled, so they count
+// as k = v = 0 and w = 1), and they need r, k, v and w to start on 16-byte
+// boundaries.  One stage suffices: nothing reads chunk c's v after phase 1
+// or its r, k, w after phase 2.  Shared memory is 198.5 KB per block for
+// float32 r, k, v, w and 174.5 KB for bfloat16 r, k, v (one block per SM:
+// 512 threads take the register file), set once per device so that a
+// launch captured into a CUDA graph is the launch alone.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -234,13 +241,12 @@ int dispatch(const void* r, const void* k, const void* v, const void* w,
     case 8: return launch<TR, TW, 8>(r, k, v, w, u, state0, out, state, b, t, h, stream);
     case 16: return launch<TR, TW, 16>(r, k, v, w, u, state0, out, state, b, t, h, stream);
     case 32: return launch<TR, TW, 32>(r, k, v, w, u, state0, out, state, b, t, h, stream);
-    case 64: return launch<TR, TW, 64>(r, k, v, w, u, state0, out, state, b, t, h, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // ---------------------------------------------------------------------------
-// Chunk route: r, k, v bfloat16, hd 64.  See the note at the top.
+// Chunk route: hd 64.  See the note at the top.
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -254,7 +260,7 @@ constexpr int NF = NSUB + 1;          // F[i][j], 0 <= j <= i <= NSUB
 constexpr int GRP = 4;                // tokens per group: a sub-block holds four
 constexpr int NG = 6;                 // G[i][a][b], 1 <= b <= a < SUB / GRP, per sub-block
 constexpr int THREADS = 512;          // 16 warps; phase 1 maps (channel, sub-block, direction)
-constexpr int DIAG_WARPS = 8;         // warps 0-7 build A and load the chunks; 8-15 run the products
+constexpr int DIAG_WARPS = 8;         // warps 0-7 build A and load r, k, w; 8-15 load v and run the products
 constexpr int LOADERS = DIAG_WARPS * 32;
 constexpr float LOG2_FLOOR = -100.0f;
 // Row strides (floats) of the float32 tiles, padded so that the mma
@@ -265,12 +271,12 @@ constexpr int SA = HD + 4;
 constexpr int SB = HD + 8;
 static_assert(THREADS == 2 * HD * NSUB, "phase 1 gives each thread one channel of one sub-block");
 
-// Byte offsets into the dynamic shared memory.
-template <typename TW>
+// Byte offsets into the dynamic shared memory: the stage (r, k, v, w as
+// they arrive), then the float32 tiles.
+template <typename TR, typename TW>
 struct Smem {
-  static constexpr int RKV = CL * HD * 2;                          // one bf16 tile
-  static constexpr int STAGE = 3 * RKV + CL * HD * static_cast<int>(sizeof(TW));
-  static constexpr int RH = 2 * STAGE;                              // R^ [CL][SA]
+  static constexpr int RKV = CL * HD * static_cast<int>(sizeof(TR));   // one r, k or v tile
+  static constexpr int RH = 3 * RKV + CL * HD * static_cast<int>(sizeof(TW));   // R^ [CL][SA]
   static constexpr int KH = RH + CL * SA * 4;                       // K^ [CL][SA]
   static constexpr int VF = KH + CL * SA * 4;                       // v  [CL][SB]
   static constexpr int AM = VF + CL * SB * 4;                       // A  [CL][SA]
@@ -282,6 +288,7 @@ struct Smem {
   static constexpr int KG = RG + CL * SA * 4;                       // K' [CL][SA]
   static constexpr int GF = KG + CL * SA * 4;                       // G  [NSUB][NG][HD]
   static constexpr size_t BYTES = GF + NSUB * NG * HD * 4;
+  static_assert(BYTES <= 232448, "one block's shared memory on Hopper");
 };
 
 // The split-TF32 products and cp.async copies, shared with
@@ -289,10 +296,25 @@ struct Smem {
 using tf32::cp_async16;
 using tf32::cp_async_commit;
 using tf32::cp_async_wait_all;
+using tf32::exact_tf32;
 using tf32::mma;
-using tf32::mma2;
 using tf32::mma3;
 using tf32::split;
+
+// c += a * v for the two products whose B operand is v, with a given as
+// its hi and lo TF32 parts: hi*hi into c, the corrections into cc.  v exact
+// in TF32 (bfloat16) has no lo part and takes hi*v + lo*v; float32 v is
+// split too and takes hi*hi + lo*hi + hi*lo, as mma3 does.
+template <bool EXACT>
+__device__ __forceinline__ void mma_v(float (&c)[4], float (&cc)[4], const uint32_t (&ah)[4],
+                                      const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  tf32::to_tf32<EXACT>(b0, bh0, bl0);
+  tf32::to_tf32<EXACT>(b1, bh1, bl1);
+  mma(cc, al, bh0, bh1);
+  if constexpr (!EXACT) mma(cc, ah, bl0, bl1);
+  mma(c, ah, bh0, bh1);
+}
 
 // Two consecutive values from shared memory as float32.
 __device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
@@ -350,14 +372,15 @@ __device__ __forceinline__ void load_chunk(int lt, uint32_t dst, const T* src, s
   }
 }
 
-template <typename TW>
+template <typename TR, typename TW>
 __global__ void __launch_bounds__(THREADS, 1)
-chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const TW* __restrict__ w,
+chunk_kernel(const TR* __restrict__ r, const TR* __restrict__ k,
+             const TR* __restrict__ v, const TW* __restrict__ w,
              const float* __restrict__ u, const float* __restrict__ state0,
              float* __restrict__ out, float* __restrict__ state, int t_len,
              int n_heads) {
-  using M = Smem<TW>;
+  using M = Smem<TR, TW>;
+  constexpr bool V_EXACT = exact_tf32<TR>();
   extern __shared__ __align__(16) unsigned char smem[];
   float* const rh = reinterpret_cast<float*>(smem + M::RH);
   float* const kh = reinterpret_cast<float*>(smem + M::KH);
@@ -384,20 +407,25 @@ chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
                       static_cast<size_t>(h) * HD;
   const int n_chunks = (t_len + CL - 1) / CL;
 
-  // Warps 0-7 ("diagonal warps") build A and load the chunks; warps 8-15
-  // ("product warps") run the products with S and own the output and the
-  // state.  A scheduler holds warps w, w + 4, w + 8 and w + 12: two of each
-  // kind.
+  // Warps 0-7 ("diagonal warps") build A and load r, k, w; warps 8-15
+  // ("product warps") load v, run the products with S and own the output
+  // and the state.  A scheduler holds warps w, w + 4, w + 8 and w + 12: two
+  // of each kind.
   const bool diag_warp = warp < DIAG_WARPS;
-  auto issue = [&](int c) {   // diagonal warps only
-    const uint32_t dst = smem_addr + (c % 2) * M::STAGE;
-    const size_t off = base + static_cast<size_t>(c) * CL * row_stride;
-    load_chunk<LOADERS>(tid, dst, r + off, row_stride, c * CL, t_len);
-    load_chunk<LOADERS>(tid, dst + M::RKV, k + off, row_stride, c * CL, t_len);
-    load_chunk<LOADERS>(tid, dst + 2 * M::RKV, v + off, row_stride, c * CL, t_len);
-    load_chunk<LOADERS>(tid, dst + 3 * M::RKV, w + off, row_stride, c * CL, t_len);
+  auto chunk_off = [&](int c) { return base + static_cast<size_t>(c) * CL * row_stride; };
+  auto issue_rkw = [&](int c) {   // diagonal warps
+    load_chunk<LOADERS>(tid, smem_addr, r + chunk_off(c), row_stride, c * CL, t_len);
+    load_chunk<LOADERS>(tid, smem_addr + M::RKV, k + chunk_off(c), row_stride, c * CL, t_len);
+    load_chunk<LOADERS>(tid, smem_addr + 3 * M::RKV, w + chunk_off(c), row_stride, c * CL, t_len);
   };
-  if (diag_warp) issue(0);
+  auto issue_v = [&](int c) {     // product warps
+    load_chunk<LOADERS>(tid - LOADERS, smem_addr + 2 * M::RKV, v + chunk_off(c), row_stride, c * CL, t_len);
+  };
+  if (diag_warp) {
+    issue_rkw(0);
+  } else {
+    issue_v(0);
+  }
   cp_async_commit();
 
   if (tid < HD) us[tid] = u[h * HD + tid];
@@ -428,11 +456,10 @@ chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();     // chunk c has landed for every thread
     const int n = min(CL, t_len - c * CL);
-    const unsigned char* stage = smem + (c % 2) * M::STAGE;
-    const bf16* const rs = reinterpret_cast<const bf16*>(stage);
-    const bf16* const ks = rs + CL * HD;
-    const bf16* const vs = ks + CL * HD;
-    const TW* const ws = reinterpret_cast<const TW*>(stage + 3 * M::RKV);
+    const TR* const rs = reinterpret_cast<const TR*>(smem);
+    const TR* const ks = rs + CL * HD;
+    const TR* const vs = ks + CL * HD;
+    const TW* const ws = reinterpret_cast<const TW*>(smem + 3 * M::RKV);
 
     // Phase 1: thread (ch, i, dir) takes channel ch of sub-block i: running
     // sums of log2 w over the sub-block and over each group of 4 tokens,
@@ -453,10 +480,10 @@ chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
 #pragma unroll
         for (int q = 0; q < SUB; ++q) {
           const int t = i * SUB + q;
-          const float x = __bfloat162float(rs[t * HD + ch]);
+          const float x = load_f32(rs + t * HD + ch);
           rh[t * SA + ch] = x * fast_exp2(acc);
           rg[t * SA + ch] = x * fast_exp2(grp);
-          vf[t * SB + ch] = __bfloat162float(vs[t * HD + ch]);
+          vf[t * SB + ch] = load_f32(vs + t * HD + ch);
           acc += lw[q];
           grp += lw[q];
           if (q % GRP == GRP - 1) {
@@ -477,7 +504,7 @@ chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
 #pragma unroll
         for (int q = SUB - 1; q >= 0; --q) {
           const int t = i * SUB + q;
-          const float x = __bfloat162float(ks[t * HD + ch]);
+          const float x = load_f32(ks + t * HD + ch);
           kh[t * SA + ch] = x * fast_exp2(acc);
           kg[t * SA + ch] = x * fast_exp2(grp);
           acc += lw[q];
@@ -486,8 +513,12 @@ chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
       }
     }
     __syncthreads();
-    // F[i+1][j] = 2^(T_j + ... + T_i) for j <= i, and F[i][i] = 1.
-    if (tid < THREADS / 2) {
+    // F[i+1][j] = 2^(T_j + ... + T_i) for j <= i, and F[i][i] = 1, on the
+    // diagonal warps; the product warps bring chunk c + 1's v into the stage
+    // (chunk c's is in vf now).
+    if (!diag_warp) {
+      if (c + 1 < n_chunks) issue_v(c + 1);
+    } else {
       const int ch = tid % HD;
       const int i = tid / HD;
       float acc = 0.0f;
@@ -613,10 +644,56 @@ chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
           am[(m0 + g + 8 * (q / 2)) * SA + n0 + 2 * t4 + q % 2] = acc[q] + corr[q];
       }
     } else {
-      // Phase 2, product warps: the products that need no A.  The output
-      // tiles' (R^ F[i][0]) S into o; the state tiles' S' = diag(F[4][0]) S +
-      // sum_j (K^_j F[4][j+1])^T v_j into sacc.
-#pragma unroll 4
+      // Phase 2, product warps: the products that need no A.  The state
+      // tiles' S' = diag(F[4][0]) S + sum_j (K^_j F[4][j+1])^T v_j into
+      // sacc, then the output tiles' (R^ F[i][0]) S into o: in this order,
+      // o's accumulators are not live while S' is formed.  Both loops
+      // unroll by 2: by 4 they spill at the 128 registers that 512 threads
+      // leave a thread, in one type pair or another.
+      {
+        const float* fs = ff + (NSUB * NF) * HD;
+        float sc[2][2][4] = {};
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const float d0 = fs[32 * mp + 16 * mi + g], d1 = fs[32 * mp + 16 * mi + g + 8];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            sacc[mi][j][0] *= d0;
+            sacc[mi][j][1] *= d0;
+            sacc[mi][j][2] *= d1;
+            sacc[mi][j][3] *= d1;
+          }
+        }
+#pragma unroll 2
+        for (int k0 = 0; k0 < CL; k0 += 8) {
+          const float* fk = fs + (k0 / SUB + 1) * HD;
+          float b[2][2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            b[j][0] = vf[(k0 + t4) * SB + 16 * np + 8 * j + g];
+            b[j][1] = vf[(k0 + t4 + 4) * SB + 16 * np + 8 * j + g];
+          }
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            const int m0 = 32 * mp + 16 * mi;
+            const float e0 = fk[m0 + g], e1 = fk[m0 + g + 8];
+            uint32_t a_hi[4], a_lo[4];
+            split(kh[(k0 + t4) * SA + m0 + g] * e0, a_hi[0], a_lo[0]);
+            split(kh[(k0 + t4) * SA + m0 + g + 8] * e1, a_hi[1], a_lo[1]);
+            split(kh[(k0 + t4 + 4) * SA + m0 + g] * e0, a_hi[2], a_lo[2]);
+            split(kh[(k0 + t4 + 4) * SA + m0 + g + 8] * e1, a_hi[3], a_lo[3]);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) mma_v<V_EXACT>(sacc[mi][j], sc[mi][j], a_hi, a_lo, b[j][0], b[j][1]);
+          }
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) sacc[mi][j][q] += sc[mi][j][q];
+      }
+#pragma unroll 2
       for (int k0 = 0; k0 < HD; k0 += 8) {
         float b[2][2];
 #pragma unroll
@@ -636,57 +713,14 @@ chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
           for (int j = 0; j < 2; ++j) mma3(o[mi][j], oc[mi][j], a, b[j][0], b[j][1]);
         }
       }
-      {
-        const float* fs = ff + (NSUB * NF) * HD;
-        float sc[2][2][4] = {};
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const float d0 = fs[32 * mp + 16 * mi + g], d1 = fs[32 * mp + 16 * mi + g + 8];
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            sacc[mi][j][0] *= d0;
-            sacc[mi][j][1] *= d0;
-            sacc[mi][j][2] *= d1;
-            sacc[mi][j][3] *= d1;
-          }
-        }
-#pragma unroll 4
-        for (int k0 = 0; k0 < CL; k0 += 8) {
-          const float* fk = fs + (k0 / SUB + 1) * HD;
-          float b[2][2];
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            b[j][0] = vf[(k0 + t4) * SB + 16 * np + 8 * j + g];
-            b[j][1] = vf[(k0 + t4 + 4) * SB + 16 * np + 8 * j + g];
-          }
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            const int m0 = 32 * mp + 16 * mi;
-            const float e0 = fk[m0 + g], e1 = fk[m0 + g + 8];
-            uint32_t a_hi[4], a_lo[4];
-            split(kh[(k0 + t4) * SA + m0 + g] * e0, a_hi[0], a_lo[0]);
-            split(kh[(k0 + t4) * SA + m0 + g + 8] * e1, a_hi[1], a_lo[1]);
-            split(kh[(k0 + t4 + 4) * SA + m0 + g] * e0, a_hi[2], a_lo[2]);
-            split(kh[(k0 + t4 + 4) * SA + m0 + g + 8] * e1, a_hi[3], a_lo[3]);
-#pragma unroll
-            for (int j = 0; j < 2; ++j) mma2(sacc[mi][j], sc[mi][j], a_hi, a_lo, b[j][0], b[j][1]);
-          }
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) sacc[mi][j][q] += sc[mi][j][q];
-      }
     }
     __syncthreads();
 
-    // Phase 3: the diagonal warps load chunk c + 1 into the other stage (last
-    // read in chunk c - 1, before its final barrier); the product warps
-    // write out = A v + o for their output tiles.
+    // Phase 3: the diagonal warps load chunk c + 1's r, k and w into the
+    // stage (chunk c's were last read in phase 2); the product warps write
+    // out = A v + o for their output tiles.
     if (diag_warp) {
-      if (c + 1 < n_chunks) issue(c + 1);
+      if (c + 1 < n_chunks) issue_rkw(c + 1);
     } else {
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
@@ -702,7 +736,7 @@ chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int col = 16 * np + 8 * j + g;
-            mma2(o[mi][j], oc[mi][j], a_hi, a_lo, vf[(k0 + t4) * SB + col], vf[(k0 + t4 + 4) * SB + col]);
+            mma_v<V_EXACT>(o[mi][j], oc[mi][j], a_hi, a_lo, vf[(k0 + t4) * SB + col], vf[(k0 + t4 + 4) * SB + col]);
           }
         }
 #pragma unroll
@@ -718,7 +752,7 @@ chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
         }
       }
     }
-    cp_async_commit();   // chunk c + 1's copies (empty for product warps and at the end)
+    cp_async_commit();   // chunk c + 1's copies (empty at the end)
     __syncthreads();     // every warp has read S, A and this chunk's stage
     if (!diag_warp) {
 #pragma unroll
@@ -764,7 +798,7 @@ cudaError_t allow_dynamic_smem(const void* kernel, size_t bytes, unsigned& confi
   return cudaSuccess;
 }
 
-template <typename TW>
+template <typename TR, typename TW>
 int launch(const void* r, const void* k, const void* v, const void* w,
            const float* u, const float* state0, float* out, float* state,
            int b, int t, int h, cudaStream_t stream) {
@@ -772,14 +806,22 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   // must be 16-byte aligned (the wrapper checks this too).
   for (const void* ptr : {r, k, v, w})
     if (reinterpret_cast<uintptr_t>(ptr) % 16) return static_cast<int>(cudaErrorMisalignedAddress);
-  constexpr size_t smem = Smem<TW>::BYTES;
+  constexpr size_t smem = Smem<TR, TW>::BYTES;
   static unsigned configured = 0;
-  cudaError_t err = allow_dynamic_smem(reinterpret_cast<const void*>(chunk_kernel<TW>), smem, configured);
+  cudaError_t err = allow_dynamic_smem(reinterpret_cast<const void*>(chunk_kernel<TR, TW>), smem, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
-  chunk_kernel<TW><<<b * h, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(r), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+  chunk_kernel<TR, TW><<<b * h, THREADS, smem, stream>>>(
+      static_cast<const TR*>(r), static_cast<const TR*>(k), static_cast<const TR*>(v),
       static_cast<const TW*>(w), u, state0, out, state, t, h);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TR>
+int launch(const void* r, const void* k, const void* v, const void* w,
+           const float* u, const float* state0, float* out, float* state,
+           int b, int t, int h, int w_bf16, cudaStream_t stream) {
+  if (w_bf16) return launch<TR, bf16>(r, k, v, w, u, state0, out, state, b, t, h, stream);
+  return launch<TR, float>(r, k, v, w, u, state0, out, state, b, t, h, stream);
 }
 
 }  // namespace tc
@@ -790,10 +832,10 @@ int launch(const void* r, const void* k, const void* v, const void* w,
 // WKV6 recurrence over r, k, v, w (b, t, h, hd, contiguous) and u (h, hd,
 // float32) from state0 (b, h, hd, hd, float32; null for zero).  hd is 8,
 // 16, 32 or 64; rkv_bf16 and w_bf16 pick bfloat16 (1) or float32 (0) for
-// r, k, v and for w.  bfloat16 r, k, v at hd 64 take the chunk kernel and
-// need 16-byte-aligned r, k, v, w; everything else the token kernel.
-// Launches on `stream` without synchronising and returns the CUDA error of
-// the launch (0 when it was accepted).
+// r, k, v and for w.  hd 64 takes the chunk kernel and needs 16-byte-aligned
+// r, k, v, w; hd 8, 16 and 32 the token kernel.  Launches on `stream`
+// without synchronising and returns the CUDA error of the launch (0 when it
+// was accepted).
 extern "C" int wkv6(const void* r, const void* k, const void* v,
                     const void* w, const void* u, const void* state0,
                     void* out, void* state, int b, int t, int h, int hd,
@@ -803,9 +845,9 @@ extern "C" int wkv6(const void* r, const void* k, const void* v,
   const float* s0 = static_cast<const float*>(state0);
   float* of = static_cast<float*>(out);
   float* sf = static_cast<float*>(state);
-  if (rkv_bf16 && hd == 64) {
-    if (w_bf16) return tc::launch<__nv_bfloat16>(r, k, v, w, uf, s0, of, sf, b, t, h, st);
-    return tc::launch<float>(r, k, v, w, uf, s0, of, sf, b, t, h, st);
+  if (hd == 64) {
+    if (rkv_bf16) return tc::launch<__nv_bfloat16>(r, k, v, w, uf, s0, of, sf, b, t, h, w_bf16, st);
+    return tc::launch<float>(r, k, v, w, uf, s0, of, sf, b, t, h, w_bf16, st);
   }
   if (rkv_bf16) {
     if (w_bf16)
@@ -815,4 +857,12 @@ extern "C" int wkv6(const void* r, const void* k, const void* v,
   if (w_bf16)
     return dispatch<float, __nv_bfloat16>(r, k, v, w, uf, s0, of, sf, b, t, h, hd, st);
   return dispatch<float, float>(r, k, v, w, uf, s0, of, sf, b, t, h, hd, st);
+}
+
+// Dynamic shared memory (bytes) of the chunk kernel for r, k, v and w of
+// the given types (1: bfloat16, 0: float32), as its launches ask for it.
+extern "C" int wkv6_smem(int rkv_bf16, int w_bf16) {
+  using tc::bf16;
+  if (rkv_bf16) return static_cast<int>(w_bf16 ? tc::Smem<bf16, bf16>::BYTES : tc::Smem<bf16, float>::BYTES);
+  return static_cast<int>(w_bf16 ? tc::Smem<float, bf16>::BYTES : tc::Smem<float, float>::BYTES);
 }

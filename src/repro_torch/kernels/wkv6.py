@@ -8,12 +8,12 @@ starts from a given state (zero by default) and returns the final state,
 which the model's prefill keeps as its decode cache.
 
 The source holds two kernels, and ``route`` says which one a call takes, as
-the C dispatch does: bfloat16 r, k, v at head_dim 64 take the chunk kernel,
-which works 64 tokens at a time with its products on the tensor cores (TF32
-operands split into high and low parts, float32 accumulators); every
-float32 shape and bfloat16 at head_dim 8, 16 or 32 take the token kernel,
-the exact recurrence one token at a time on the CUDA cores.  The routing is
-fixed; neither kernel stands in for the other.
+the C dispatch does: head_dim 64, with r, k, v float32 or bfloat16, takes
+the chunk kernel, which works 64 tokens at a time with its products on the
+tensor cores (TF32 operands split into high and low parts, float32
+accumulators; bfloat16 v, exact in TF32, is not split); head_dim 8, 16 or
+32 takes the token kernel, the exact recurrence one token at a time on the
+CUDA cores.  The routing is fixed; neither kernel stands in for the other.
 
 The gradient is a kernel too: when autograd records a CUDA call, ``wkv6``
 is the entry of the autograd function ``_WKV6``, whose forward is the
@@ -38,7 +38,7 @@ from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (8, 16, 32, 64)   # the kernels' instantiations
-CHUNK_HEAD_DIMS = (64,)       # bfloat16 ones on the chunk kernel
+CHUNK_HEAD_DIMS = (64,)       # on the chunk kernel, r, k, v in either type; the rest on the token kernel
 BWD_CHUNK = 64                # tokens a chunk of the backward, between its checkpoints (L in wkv6_bwd.cu)
 
 
@@ -72,16 +72,18 @@ def wkv6_plain(
     u: torch.Tensor,
     state: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The recurrence one token at a time, in float32:
-    ``out_t = r_t^T (S + diag(u) k_t v_t^T)``, ``S = diag(w_t) S + k_t v_t^T``.
-    Returns (out (B, T, H, hd), final state (B, H, hd, hd))."""
+    """The recurrence one token at a time, in float32 (float64 for float64
+    r, a yardstick): ``out_t = r_t^T (S + diag(u) k_t v_t^T)``,
+    ``S = diag(w_t) S + k_t v_t^T``.  Returns (out (B, T, H, hd), final
+    state (B, H, hd, hd)) in that type."""
     b, t_len, h, hd = r.shape
+    ct = torch.float64 if r.dtype == torch.float64 else torch.float32
     if state is None:
-        s = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
+        s = torch.zeros((b, h, hd, hd), dtype=ct, device=r.device)
     else:
-        s = state.float()
-    r, k, v, w = (a.float() for a in (r, k, v, w))
-    bonus = u.float()[None, :, :, None]
+        s = state.to(ct)
+    r, k, v, w = (a.to(ct) for a in (r, k, v, w))
+    bonus = u.to(ct)[None, :, :, None]
     outs = []
     for t in range(t_len):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]          # (B, H, hd, hd)
@@ -138,12 +140,13 @@ def wkv6_bwd_plain(
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
-    """Which kernel a CUDA call with r, k, v of ``dtype`` and ``head_dim``
-    launches: ``"chunk"`` (tensor cores) or ``"token"`` (CUDA cores), as
-    ``wkv6.cu``'s dispatch decides."""
-    if dtype == torch.bfloat16 and head_dim in CHUNK_HEAD_DIMS:
-        return "chunk"
-    return "token"
+    """Which kernel a CUDA call with r, k, v of ``dtype`` (float32 or
+    bfloat16: both take the same route) and ``head_dim`` launches:
+    ``"chunk"`` (tensor cores) or ``"token"`` (CUDA cores), as ``wkv6.cu``'s
+    dispatch decides."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"wkv6 takes r, k, v in float32 or bfloat16, got {dtype}")
+    return "chunk" if head_dim in CHUNK_HEAD_DIMS else "token"
 
 
 def check_alignment(kernel_route: str, *tensors: torch.Tensor) -> None:

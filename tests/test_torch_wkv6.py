@@ -12,7 +12,9 @@ card (skipped without one) and by ``chip_smoke.py``.
 16 and groups of 4, every decay a factor 2^x with x a sum of log2 w between
 an earlier and a later position, running products of w inside a group, the
 state carried across chunks, a ragged last chunk, and each tensor-core
-product on TF32 operands split into high and low parts.  It is test code,
+product on TF32 operands split into high and low parts (v too, as the
+float32 route splits it; bfloat16 v has a zero low part, so the same model
+holds the bfloat16 route's two products).  It is test code,
 not a second plain version: it shows on the CPU that the algorithm meets
 the tolerance at decays where the Pallas kernel's closed form overflows.
 """
@@ -148,16 +150,16 @@ def test_cuda_kernel_matches_plain_version(dtype):
             want_out, want_final = wkv6_plain(r, k, v, w, u, state)
             torch.testing.assert_close(out, want_out, rtol=2e-3, atol=2e-3)
             torch.testing.assert_close(final, want_final, rtol=2e-3, atol=2e-3)
-    # The chunk route (bfloat16, hd 64) at strong decays (|log w| up to 20,
-    # w = 0, w = 1 - 1e-4), at ragged lengths and at rwkv6-7b's prefill
-    # shape; the float32 route at the same decays.
+    # The chunk route (hd 64, both types) at strong decays (|log w| up to
+    # 20, w = 0, w = 1 - 1e-4), at ragged lengths and at rwkv6-7b's prefill
+    # and train shape.
     for b, t, h, hd in [(1, 1, 2, 64), (1, 37, 3, 64), (2, 100, 4, 64), (2, 2048, 64, 64)]:
         for with_state in (False, True):
             r, k, v, w, u, s0 = _model_inputs(b, t, h, hd, "strong", seed=t, with_state=with_state)
             args = [a.cuda() for a in _torch(r, k, v, w, u)]
             args[:3] = [a.to(getattr(torch, dtype)) for a in args[:3]]
             state = None if s0 is None else torch.from_numpy(s0).cuda()
-            assert wkv6_mod.route(args[0].dtype, hd) == ("chunk" if dtype == "bfloat16" else "token")
+            assert wkv6_mod.route(args[0].dtype, hd) == "chunk"
             out, final = wkv6(*args, state)
             torch.cuda.synchronize()
             want_out, want_final = wkv6_plain(*args, state)
@@ -228,16 +230,12 @@ SPLIT = True   # False: one TF32 pass per product (the design the kernel rejects
 
 
 def _mm3(a, b):
-    """a @ b with both operands split: hi*hi + (lo*hi + hi*lo)."""
+    """a @ b with both operands split: hi*hi + (lo*hi + hi*lo).  Where ``b``
+    is exact in TF32 (bfloat16 v) its low part is 0 and this is the
+    bfloat16 route's hi*b + lo*b."""
     ah, al = _tf32_split(a)
     bh, bl = _tf32_split(b)
     return ah @ bh + (al @ bh + ah @ bl) if SPLIT else ah @ bh
-
-
-def _mm2(a, b):
-    """a @ b with ``b`` exact in TF32 (bfloat16 values): hi*b + lo*b."""
-    ah, al = _tf32_split(a)
-    return ah @ b + al @ b if SPLIT else ah @ b
 
 
 def wkv6_chunk_model(r, k, v, w, u, state=None):
@@ -306,8 +304,8 @@ def wkv6_chunk_model(r, k, v, w, u, state=None):
 
         f_out = f[:, :, torch.arange(NSUB), 0].repeat_interleave(SUB, dim=2)      # F[i(t)][0]
         f_state = f[:, :, NSUB, 1:].repeat_interleave(SUB, dim=2)                  # F[4][j(s)+1]
-        out = _mm3(rh * f_out, s) + _mm2(a_mat, vc)
-        s = f[:, :, NSUB, 0][..., None] * s + _mm2((kh * f_state).transpose(-1, -2), vc)
+        out = _mm3(rh * f_out, s) + _mm3(a_mat, vc)
+        s = f[:, :, NSUB, 0][..., None] * s + _mm3((kh * f_state).transpose(-1, -2), vc)
         outs.append(out[:, :, :n])
     return torch.cat(outs, 2).permute(0, 2, 1, 3), s
 
@@ -330,23 +328,29 @@ def _decays(kind, shape, rng):
     return w
 
 
-def _model_inputs(b, t, h, hd, kind, seed, with_state):
+def _model_inputs(b, t, h, hd, kind, seed, with_state, rkv="bfloat16"):
+    """r, k, v as the ``rkv`` route gets them: values exact in bfloat16, or
+    float32 values that are not (neither they nor v exact in TF32)."""
     rng = np.random.default_rng(seed)
-    r, k, v = (_bf16(rng.standard_normal((b, t, h, hd), dtype=np.float32)) for _ in range(3))
+    r, k, v = (rng.standard_normal((b, t, h, hd), dtype=np.float32) for _ in range(3))
+    if rkv == "bfloat16":
+        r, k, v = (_bf16(a) for a in (r, k, v))
     w = _decays(kind, (b, t, h, hd), rng)
     u = (rng.standard_normal((h, hd)) * 0.1).astype(np.float32)
     s0 = rng.standard_normal((b, h, hd, hd), dtype=np.float32) if with_state else None
     return r, k, v, w, u, s0
 
 
+@pytest.mark.parametrize("rkv", ["bfloat16", "float32"])
 @pytest.mark.parametrize("with_state", [False, True], ids=["zero-state", "random-state"])
 @pytest.mark.parametrize("kind", ["mild", "strong"])
 @pytest.mark.parametrize("b,t,h,hd", [(1, 200, 2, 16), (2, 130, 2, 32)])
-def test_chunk_model_matches_the_plain_recurrence(b, t, h, hd, kind, with_state):
+def test_chunk_model_matches_the_plain_recurrence(b, t, h, hd, kind, with_state, rkv):
     """At mild and at strong decays (|log w| up to 20, w = 0, w = 1 - 1e-4),
-    from zero and from a random state, over a ragged last chunk: finite,
-    and within 2e-3 of the step-by-step recurrence."""
-    r, k, v, w, u, s0 = _model_inputs(b, t, h, hd, kind, seed=t + hd, with_state=with_state)
+    from zero and from a random state, over a ragged last chunk, for r, k, v
+    exact in bfloat16 and in float32: finite, and within 2e-3 of the
+    step-by-step recurrence."""
+    r, k, v, w, u, s0 = _model_inputs(b, t, h, hd, kind, seed=t + hd, with_state=with_state, rkv=rkv)
     args = _torch(r, k, v, w, u) + [None if s0 is None else torch.from_numpy(s0)]
     out, state = wkv6_chunk_model(*args)
     want_out, want_state = wkv6_plain(*args)
@@ -355,11 +359,12 @@ def test_chunk_model_matches_the_plain_recurrence(b, t, h, hd, kind, with_state)
     torch.testing.assert_close(state, want_state, rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("rkv", ["bfloat16", "float32"])
 @pytest.mark.parametrize("t", [64, 128])
-def test_chunk_model_matches_the_pallas_kernel_at_mild_decays(t):
+def test_chunk_model_matches_the_pallas_kernel_at_mild_decays(t, rkv):
     """At mild decays, where the Pallas kernel's closed form is in range,
     the model agrees with ``ops.wkv6`` and ``ref.wkv6_ref`` too."""
-    r, k, v, w, u, _ = _model_inputs(1, t, 2, 16, "mild", seed=t, with_state=False)
+    r, k, v, w, u, _ = _model_inputs(1, t, 2, 16, "mild", seed=t, with_state=False, rkv=rkv)
     out, _ = wkv6_chunk_model(*_torch(r, k, v, w, u))
     np.testing.assert_allclose(out.numpy(), np.asarray(ops.wkv6(*_jax(r, k, v, w, u), chunk=16)), rtol=2e-3, atol=2e-3)
     np.testing.assert_allclose(out.numpy(), np.asarray(_wkv6_ref(*_jax(r, k, v, w, u))), rtol=2e-3, atol=2e-3)
@@ -368,20 +373,36 @@ def test_chunk_model_matches_the_pallas_kernel_at_mild_decays(t):
 @pytest.mark.parametrize("head_dim", wkv6_mod.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_route_puts_bf16_at_64_on_the_chunk_kernel(dtype, head_dim):
-    want = "chunk" if dtype == torch.bfloat16 and head_dim == 64 else "token"
+    """Head_dim 64 takes the chunk kernel whatever r, k, v's type; the
+    token kernel keeps 8, 16 and 32."""
+    want = "chunk" if head_dim == 64 else "token"
     assert wkv6_mod.route(dtype, head_dim) == want
 
 
+def test_route_takes_only_the_kernels_types():
+    with pytest.raises(TypeError):
+        wkv6_mod.route(torch.float64, 64)
+
+
 def test_route_mirrors_the_c_dispatch():
-    """The head dims that ``wkv6.cu``'s entry sends bfloat16 r, k, v to
-    ``tc::launch`` with are ``CHUNK_HEAD_DIMS``; float32 never goes there."""
+    """The head dims that ``wkv6.cu``'s entry sends to ``tc::launch`` are
+    ``CHUNK_HEAD_DIMS``, for bfloat16 and for float32 r, k, v."""
     src = (wkv6_mod.build.CSRC_DIR / "wkv6.cu").read_text()
     entry = src[src.index('extern "C" int wkv6('):]
-    chunk_dims = tuple(int(d) for d in re.findall(r"if \(rkv_bf16 && hd == (\d+)\)", entry))
+    chunk_dims = tuple(int(d) for d in re.findall(r"if \(hd == (\d+)\)", entry))
     assert chunk_dims == wkv6_mod.CHUNK_HEAD_DIMS
-    block = entry[entry.index("if (rkv_bf16 && hd =="):]
+    block = entry[entry.index("if (hd =="):]
     block = block[:block.index("}")]
-    assert block.count("tc::launch<") == 2   # w in float32 or in bfloat16
+    assert block.count("tc::launch<__nv_bfloat16>") == block.count("tc::launch<float>") == 1
+
+
+def test_token_kernel_takes_only_the_small_head_dims():
+    """The token kernel's switch instantiates hd 8, 16 and 32 alone: no
+    call at ``CHUNK_HEAD_DIMS`` can reach it, in either type."""
+    src = (wkv6_mod.build.CSRC_DIR / "wkv6.cu").read_text()
+    switch = src[src.index("int dispatch("):src.index("namespace tc {")]
+    token_dims = tuple(int(d) for d in re.findall(r"case (\d+): return launch<TR, TW, \1>", switch))
+    assert token_dims == tuple(d for d in wkv6_mod.HEAD_DIMS if d not in wkv6_mod.CHUNK_HEAD_DIMS) == (8, 16, 32)
 
 
 def _misaligned(shape, dtype):
@@ -390,11 +411,13 @@ def _misaligned(shape, dtype):
     return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
 
 
+@pytest.mark.parametrize("rkv", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("which", ["r", "k", "v", "w"])
-def test_alignment_check_rejects_a_misaligned_view_on_the_chunk_route(which):
-    tensors = {name: torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16) for name in "rkv"}
+def test_alignment_check_rejects_a_misaligned_view_on_the_chunk_route(which, rkv):
+    assert wkv6_mod.route(rkv, 64) == "chunk"
+    tensors = {name: torch.zeros(1, 4, 2, 64, dtype=rkv) for name in "rkv"}
     tensors["w"] = torch.zeros(1, 4, 2, 64)
-    dtype = torch.float32 if which == "w" else torch.bfloat16
+    dtype = torch.float32 if which == "w" else rkv
     tensors[which] = _misaligned((1, 4, 2, 64), dtype)
     assert tensors[which].is_contiguous() and tensors[which].data_ptr() % 16
     with pytest.raises(ValueError, match="16-byte-aligned"):
@@ -409,17 +432,20 @@ def test_alignment_check_takes_aligned_tensors():
 
 
 if __name__ == "__main__":
-    # The model against the plain recurrence at rwkv6-7b's prefill shape
-    # (B 2, T 2048, H 64, hd 64), with split operands and with one TF32 pass
-    # per product: the largest absolute error, and how far it passes
-    # 2e-3 + 2e-3 |want| (negative: within the tolerance).
-    for kind in ("mild", "strong"):
-        r, k, v, w, u, s0 = _model_inputs(2, 2048, 64, 64, kind, seed=0, with_state=True)
-        args = _torch(r, k, v, w, u) + [torch.from_numpy(s0)]
-        want, _ = wkv6_plain(*args)
-        for SPLIT in (True, False):
-            out, _ = wkv6_chunk_model(*args)
-            err = (out - want).abs()
-            excess = float((err - 2e-3 - 2e-3 * want.abs()).max())
-            print(f"{kind} decays, {'split' if SPLIT else 'one TF32 pass'}: max_abs_err={float(err.max()):.3e} "
-                  f"excess over the tolerance {excess:.3e}, finite={bool(torch.isfinite(out).all())}")
+    # The model against the plain recurrence at rwkv6-7b's prefill and train
+    # shape (B 2, T 2048, H 64, hd 64), r, k, v exact in bfloat16 and in
+    # float32, with split operands and with one TF32 pass per product: the
+    # largest absolute error, and how far it passes 2e-3 + 2e-3 |want|
+    # (negative: within the tolerance).
+    for rkv in ("bfloat16", "float32"):
+        for kind in ("mild", "strong"):
+            r, k, v, w, u, s0 = _model_inputs(2, 2048, 64, 64, kind, seed=0, with_state=True, rkv=rkv)
+            args = _torch(r, k, v, w, u) + [torch.from_numpy(s0)]
+            want, _ = wkv6_plain(*args)
+            for SPLIT in (True, False):
+                out, _ = wkv6_chunk_model(*args)
+                err = (out - want).abs()
+                excess = float((err - 2e-3 - 2e-3 * want.abs()).max())
+                print(f"{rkv} r, k, v, {kind} decays, {'split' if SPLIT else 'one TF32 pass'}: "
+                      f"max_abs_err={float(err.max()):.3e} excess over the tolerance {excess:.3e}, "
+                      f"finite={bool(torch.isfinite(out).all())}")

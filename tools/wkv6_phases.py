@@ -7,10 +7,11 @@ Builds a copy of ``src/repro_torch/kernels/csrc/wkv6.cu`` whose chunk kernel
 (``tc::chunk_kernel``) reads ``clock64()`` after each of its block barriers
 and around its loads, for block 0 and two of its threads: thread 0 (warp 0,
 a diagonal warp) and thread 256 (warp 8, a product warp).  It runs that copy
-at rwkv6-7b's prefill shape (B 2, T 2048, H 64, hd 64; r, k, v bfloat16, w
-float32) and prints the SM cycles per chunk step spent in each segment,
-beside the device time per call of the kernel itself and of the copy
-(CUDA events over calls replayed from a CUDA graph).  The copy is built
+at rwkv6-7b's shape (B 2, T 2048, H 64, hd 64) as its prefill calls it (r,
+k, v bfloat16, w float32) and as its training does (all four float32), and
+prints for each the SM cycles per chunk step spent in each segment, beside
+the device time per call of the kernel itself and of the copy (CUDA events
+over calls replayed from a CUDA graph).  The copy is built
 into ``build/repro_torch/`` and is not the kernel the port runs.  Exits
 non-zero without a card.
 """
@@ -37,10 +38,10 @@ OBSERVERS = (0, 256)   # threads of block 0: a diagonal warp's and a product war
 SEGMENTS = (
     "wait for chunk c's copies, and the state store before it",
     "phase 1 (running sums, R^ K^ R' K' v)",
-    "F",
-    "phase 2 (A on warps 0-7; (R^F)S and S' on warps 8-15)",
+    "F (warps 0-7); chunk c + 1's v copies issued (warps 8-15)",
+    "phase 2 (A on warps 0-7; S' and (R^F)S on warps 8-15)",
     "barrier after phase 2",
-    "phase 3: issue chunk c + 1's copies (warps 0-7)",
+    "phase 3: issue chunk c + 1's r, k, w copies (warps 0-7)",
     "phase 3: A v and the stores (warps 8-15)",
     "barrier after phase 3",
 )
@@ -68,7 +69,7 @@ def instrumented_source() -> str:
         return text.replace(";", f"; STAMP({count[0]});", 1)
 
     kernel = re.sub(
-        r"__syncthreads\(\);(?=\n\n    // Phase 3)|__syncthreads\(\);|if \(c \+ 1 < n_chunks\) issue\(c \+ 1\);"
+        r"__syncthreads\(\);(?=\n\n    // Phase 3)|__syncthreads\(\);|if \(c \+ 1 < n_chunks\) issue_rkw\(c \+ 1\);"
         r"|cp_async_commit\(\);(?=   // chunk c)",
         stamp, kernel)
     if count[0] != len(SEGMENTS):
@@ -123,7 +124,8 @@ def main() -> int:
     so = build.BUILD_DIR / "wkv6_phases.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu.write_text(instrumented_source())
-    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)], capture_output=True, text=True)
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC_DIR), "-o", str(so), str(cu)],
+                          capture_output=True, text=True)
     if proc.returncode:
         print(proc.stdout + proc.stderr, file=sys.stderr)
         return 1
@@ -131,9 +133,17 @@ def main() -> int:
     lib.wkv6.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.wkv6.restype = ctypes.c_int
 
+    for rkv in (torch.bfloat16, torch.float32):
+        phases(lib, rkv)
+    return 0
+
+
+def phases(lib, rkv: torch.dtype) -> None:
+    """The cycles per chunk step of the instrumented copy, r, k, v in
+    ``rkv`` and w float32, and the device time of it and of the kernel."""
     b, t, h, hd = SHAPE
     g = torch.Generator().manual_seed(0)
-    r, k, v = (torch.randn(SHAPE, generator=g).to(torch.bfloat16).cuda() for _ in range(3))
+    r, k, v = (torch.randn(SHAPE, generator=g).to(rkv).cuda() for _ in range(3))
     w = torch.exp(-torch.exp(-2.0 + 0.5 * torch.randn(SHAPE, generator=g))).cuda()
     u = (0.1 * torch.randn((h, hd), generator=g)).cuda()
     state = torch.zeros((b, h, hd, hd), device="cuda")
@@ -142,7 +152,8 @@ def main() -> int:
 
     def copy():
         err = lib.wkv6(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), state.data_ptr(),
-                       out.data_ptr(), final.data_ptr(), b, t, h, hd, 1, 0, torch.cuda.current_stream().cuda_stream)
+                       out.data_ptr(), final.data_ptr(), b, t, h, hd, int(rkv == torch.bfloat16), 0,
+                       torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"instrumented wkv6 launch failed with CUDA error {err}")
 
@@ -157,7 +168,7 @@ def main() -> int:
     clocks = (ctypes.c_ulonglong * (16 * len(OBSERVERS)))()
     lib.wkv6_clocks(clocks)
     steps = CALLS * ((t + 63) // 64)
-    print(f"wkv6 chunk kernel, (B,T,H,hd)={SHAPE} bf16: SM cycles per chunk step, block 0, "
+    print(f"wkv6 chunk kernel, (B,T,H,hd)={SHAPE} r,k,v {str(rkv)[6:]}: SM cycles per chunk step, block 0, "
           f"{CALLS} calls x {steps // CALLS} chunks")
     print(f"  {'segment':<58} {'thread 0':>9} {'thread 256':>11}")
     for i, label in enumerate(SEGMENTS, start=1):
@@ -165,7 +176,6 @@ def main() -> int:
     print(f"  {'total':<58} {sum(clocks[:16]) / steps:9.0f} {sum(clocks[16:]) / steps:11.0f}")
     print(f"device ms per call from a CUDA graph: kernel {graph_ms(lambda: wkv6(r, k, v, w, u, state)):.6f}, "
           f"instrumented copy {graph_ms(copy):.6f}")
-    return 0
 
 
 if __name__ == "__main__":

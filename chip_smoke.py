@@ -95,6 +95,27 @@ and prints no result line):
    plain versions (every leaf within 1e-4 of its norm; 2 x 2048 positions,
    rwkv6-7b 2 x 256), 4 microbatches against 1, and qwen's loss falling by
    0.5 over 30 steps;
+7d. the reference's production train step in bfloat16
+   (``launch/steps.py``): first flash_attention and its backward at the
+   path's bf16 shapes (qwen1.5-0.5b (1, 4096, 16, 16, 64); gemma3-1b
+   (1, 4096, 4, 1, 256), window 512 and global) against their plain
+   versions per row (the backward also against float64); then for
+   qwen1.5-0.5b and gemma3-1b at full width and depth, on a one-device
+   mesh (``make_host_mesh``, a one-rank NCCL group), ``build_train`` of
+   ``train_4k`` with the global batch cut from 256 to 16 (16 microbatches
+   of 1 x 4096, bf16 parameters, float32 moments, remat with the arch's
+   policy), the roofline counter's FLOPs (one microbatch's bundle under
+   ``FakeTensorMode``, times the microbatches) beside ``model_flops``,
+   ``materialize`` (every tensor of the abstract shape and dtype), a
+   finite, non-zero gradient on every leaf, one warm and 3 timed steps of
+   the bundle's ``fn`` with the kernels' launches counted, and one more
+   step under the profiler: step ms, tokens/s, peak memory, the device's
+   busy share, the product kernels' share, flash_attention's and its
+   backward's share and time a call, and the model-FLOPs utilization at
+   the H100's bf16 peak beside the card's name and power limit; then the
+   gradient of ``forward_loss`` in bf16 through the kernels against the
+   plain versions' at full width, 1 x 4096 (qwen 2 layers, gemma3-1b 6),
+   every leaf within ``PROD_GRAD_TOL`` of its norm;
 8. the device stepper's recurrence: ``lindley_ends`` on the card at 7,
    4097 and 2^20 requests (a clock past 5,000 s) against the float64
    ``_server_ends``, within 2e-6 s of delay;
@@ -121,12 +142,16 @@ and prints no result line):
     (495 / 3 TFLOP/s), and the float32 forward kernel at the train shapes
     beside its plain version, SDPA's float32 forward and its bounds at the
     same two rates; wkv6_bwd and the float32 wkv6 forward (chunk route) at
-    rwkv6-7b's train shape beside their plain versions and bounds.
+    rwkv6-7b's train shape beside their plain versions and bounds; and
+    flash_attention and its backward at the bf16 production train shapes
+    beside their plain versions, SDPA's bf16 forward and backward and
+    their bounds at the bf16 rate.
 
 Phases 8-12 run torch ops, not hand kernels (the reference jits them; none
 reaches a Pallas kernel): their times, launches per call and bounds go on
-a ``{"torch_ops": ...}`` line, and the train paths' readings on a
-``{"train": ...}`` line.  The line before the last is a JSON object
+a ``{"torch_ops": ...}`` line, and the train paths' readings (the bf16
+production steps' under ``production_train_bf16``) on a ``{"train": ...}``
+line.  The line before the last is a JSON object
 with one entry per kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Exits non-zero without a result when no CUDA device is present.
 """
@@ -164,7 +189,7 @@ from repro_torch.core.objective import deadline_miss, p_tail  # noqa: E402
 from repro_torch.core.plan_tables import EvalTables  # noqa: E402
 from repro_torch.core.planner import FCFS, DisciplineSpec, Plan, TenantSpec, validate_plan  # noqa: E402
 from repro_torch.core.torch_eval import TorchPlanEvaluator  # noqa: E402
-from repro_torch.hw.specs import EDGE_TPU_PLATFORM  # noqa: E402
+from repro_torch.hw.specs import EDGE_TPU_PLATFORM, H100_SXM  # noqa: E402
 from repro_torch.data.pipeline import batches_for_arch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
@@ -182,8 +207,12 @@ from repro_torch.kernels import wkv6 as wkv6_mod  # noqa: E402
 from repro_torch.kernels.wkv6 import route as wkv_route  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd, wkv6_bwd_plain, wkv6_plain  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.steps import build_train, materialize  # noqa: E402
 from repro_torch.models import attention, cnn, frontend, moe, rwkv, ssm  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.roofline import model_flops  # noqa: E402
+from repro_torch.roofline.counter import count_step  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving import torch_stepper  # noqa: E402
 from repro_torch.serving.controller import run_adaptive  # noqa: E402
@@ -284,12 +313,17 @@ def operands(shape, dtype, seed):
     return x, y
 
 
-def phase_device() -> str:
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    print(smi.stdout.strip())
+    return smi.stdout.strip()
+
+
+def phase_device() -> str:
+    print(card_line())
     kind = torch.cuda.get_device_name(0)
     print(f"torch device: {kind} (count {torch.cuda.device_count()}); torch {torch.__version__}, CUDA {torch.version.cuda}")
     return kind
@@ -1012,19 +1046,23 @@ def profiler_ranges():
             setattr(mod, attr, fn)
 
 
-def device_breakdown(label: str, fn) -> tuple[float, float, list] | None:
+def device_breakdown(label: str, fn, host_ops: bool = True) -> tuple[float, float, list] | None:
     """Device time by kernel over one call of ``fn`` (torch.profiler), the
     share of the wall time in which the device was busy, and the device
     time of the kernels launched inside each of RANGES.  The profiler's own
     host overhead lengthens the wall time, so that share is a lower bound.
+    With ``host_ops`` False the profiler records the device alone and RANGES
+    are not reported: on a bf16 production train step (some 10^5 host ops)
+    that halves the profiler's cost, about 35 s a step.
     Returns (busy ms, wall ms, [(ms, count, kernel name)]), or None when the
     profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     names = {attr for _, attr in RANGES}
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with profiler_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiler_ranges(), profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1136,7 +1174,7 @@ def phase_zoo_check(name: str) -> None:
     seq = batch.pop(key)                               # the inputs decode takes one at a time
     n_patches = t_len - seq.shape[1]
     h, _ = tf.embed_inputs(cfg, params, {**batch, key: seq})
-    full = tf.unembed(cfg, params, tf.backbone(cfg, params, h)[0])[0]
+    full = tf.unembed(cfg, params, tf.backbone(cfg, params, h, remat=False)[0])[0]
     del h
     errs = torch.zeros(t_len, device=DEVICE)
     excess = torch.zeros(t_len, device=DEVICE)       # max(|a - b| - tol * |b|) per position
@@ -2022,6 +2060,228 @@ def phase_wkv_train_times(calls: Counter, step_kernel_ms: dict[str, float]) -> t
 
 
 # --------------------------------------------------------------------------
+# The reference's production train step (launch/steps.py::build_train) in
+# bfloat16 on one card: qwen1.5-0.5b and gemma3-1b at full width and depth
+# --------------------------------------------------------------------------
+PROD_ARCHS = ("qwen1.5-0.5b", "gemma3-1b")
+# INPUT_SHAPES["train_4k"] (256 x 4096) with the global batch cut to 16.  On
+# one device train_config_for makes one microbatch per sequence: 16
+# microbatches of 1 x 4096 a step, each the work of train_4k's microbatch
+# on one batch shard; only the number accumulated is smaller.
+PROD_SHAPE = dataclasses.replace(INPUT_SHAPES["train_4k"], global_batch=16)
+PROD_TIMED = 3
+# The path's attention calls (B, S, H, KV, hd, window), bfloat16: qwen's,
+# and gemma3-1b's windowed and global layers.
+PROD_FLASH_SHAPES = [(1, 4096, 16, 16, 64, 0), (1, 4096, 4, 1, 256, 512), (1, 4096, 4, 1, 256, 0)]
+# Gradient of forward_loss through the kernels against the plain versions,
+# bfloat16 parameters and activations, full width, 1 x 4096: qwen at 2
+# layers, gemma3-1b at 6 (five windowed layers and its first global one).
+PROD_CHECK_LAYERS = {"qwen1.5-0.5b": 2, "gemma3-1b": 6}
+# Each leaf's error norm over its norm.  bfloat16 keeps 8 significant bits
+# (eps = 2^-8).  Both sides round every activation, probability and
+# gradient to bfloat16, but at different points (the kernels round P and
+# their outputs once, after float32 sums; the plain versions after each
+# product), so an element of either carries rounding of a few eps that the
+# other does not, with independent signs; a leaf's norm of such errors is a
+# few eps of its norm.  The limit is 8 eps; a lost tile of a key block, the
+# fault the per-row checks plant, moves the rows it touches by order 1.
+PROD_GRAD_TOL = 8 * 2.0**-8
+# cuBLAS / CUTLASS product kernels as the profiler names them.
+PRODUCT_KERNELS = re.compile(r"gemm|cutlass|xmma|nvjet|cublas", re.IGNORECASE)
+
+
+def phase_prod_train(name: str, mesh, calls: Counter) -> dict:
+    """The reference's production train step of ``name`` through the
+    port's bundle: ``build_train`` on a one-device mesh, ``materialize``,
+    then the bundle's ``fn``: one warm and PROD_TIMED timed steps and one
+    under the profiler; returns the path's launches and the step's
+    readings."""
+    cfg = ARCHS[name]
+    t0 = time.perf_counter()
+    bundle = build_train(cfg, PROD_SHAPE, mesh)
+    tcfg = bundle.train_config
+    got = (tcfg.n_microbatches, tcfg.optimizer.moments_dtype, tcfg.remat, tcfg.remat_policy)
+    want = (PROD_SHAPE.global_batch, torch.float32, True, cfg.remat_policy)
+    print(f"{name}: {bundle.description}; n_microbatches, moments, remat, policy = {got}; "
+          f"reduced: global batch {INPUT_SHAPES['train_4k'].global_batch} -> {PROD_SHAPE.global_batch}, "
+          f"{PROD_SHAPE.global_batch} microbatches of 1 x {PROD_SHAPE.seq_len}")
+    assert got == want, (got, want)
+
+    # The counter on one microbatch's bundle (global batch 1): the step's
+    # products are its microbatches' (the accumulation and AdamW have none).
+    t = time.perf_counter()
+    one = count_step(build_train(cfg, dataclasses.replace(PROD_SHAPE, global_batch=1), mesh))
+    counted = one.flops * tcfg.n_microbatches
+    mf = model_flops(cfg, PROD_SHAPE)
+    print(f"  counter (FakeTensorMode, host, {time.perf_counter() - t:.2f} s): {one.flops:.6e} FLOPs and "
+          f"{one.bytes_accessed:.6e} bytes a microbatch; {counted:.6e} FLOPs a step; model_flops {mf:.6e} "
+          f"(useful ratio {mf / counted:.4f})")
+
+    params, opt, batch = materialize(bundle, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    n_leaves = len(leaves_with_paths((params, opt, batch)))
+    print(f"  materialize: {n_leaves} tensors of the bundle's abstract shapes and dtypes "
+          f"(parameters {params['embed'].dtype}, moments {opt['m']['embed'].dtype}); "
+          f"{tf.count_params(cfg) / 1e9:.3f} B parameters, {cfg.n_layers} layers; {time.perf_counter() - t0:.2f} s")
+    micro = {k: a[:1] for k, a in batch.items()}
+    loss, grads = param_grads(cfg, params, micro)
+    bad = [path for path, g in grads if not (bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0))]
+    print(f"  gradient of forward_loss on one microbatch (bf16): loss {loss:.4f}, {len(grads)} leaves, "
+          f"{len(grads) - len(bad)} finite and non-zero")
+    if bad or not math.isfinite(loss):
+        raise AssertionError(f"{name}: leaves without a finite, non-zero gradient: {bad[:8]}")
+    del grads
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        k["wrapper"].launches = 0
+    step_ms = []
+    with recording_kernel_calls(calls), recording_bwd_calls(calls):
+        for i in range(PROD_TIMED + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, metrics = bundle.fn(params, opt, batch)
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            if i:
+                step_ms.append((time.perf_counter() - t) * 1e3)
+            print(f"  step {i}{' (warm)' if i == 0 else ''}: loss {loss:.4f} grad_norm {gnorm:.4f}")
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise AssertionError(f"{name}: non-finite loss or grad_norm at step {i}")
+    launches = launch_counts()
+    steps = PROD_TIMED + 1
+    want = {k["name"]: 0 for k in KERNELS}
+    want["flash_attention"] = 2 * cfg.n_layers * tcfg.n_microbatches * steps
+    want["flash_attention_bwd"] = cfg.n_layers * tcfg.n_microbatches * steps
+    print(f"  launches over {steps} steps: {launches} (want {want}: two forwards a layer and microbatch under remat)")
+    assert launches == want, (launches, want)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = float(np.median(step_ms))
+    tokens = PROD_SHAPE.global_batch * PROD_SHAPE.seq_len
+    reading = device_breakdown("one train step", lambda: bundle.fn(params, opt, batch), host_ops=False)
+    shares = {}
+    if reading is not None:
+        busy, wall, kernels = reading
+        products = sum(t for t, _, key in kernels if PRODUCT_KERNELS.search(key))
+        fwd = [(t, n) for t, n, key in kernels if re.search(TRAIN_KERNELS["transformer"][1], key)]
+        bwd = [(t, n) for t, n, key in kernels if re.search(TRAIN_KERNELS["transformer"][3], key)]
+        fwd_ms, fwd_n = sum(t for t, _ in fwd), sum(n for _, n in fwd)
+        bwd_ms = sum(t for t, _ in bwd)
+        n_bwd = cfg.n_layers * tcfg.n_microbatches
+        shares = {
+            "device_busy_share": busy / wall,
+            "device_busy_share_of_step": busy / med,
+            "product_share": products / busy,
+            "flash_attention_share": fwd_ms / busy,
+            "flash_attention_ms_per_call": fwd_ms / max(fwd_n, 1),
+            "flash_attention_bwd_share": bwd_ms / busy,
+            "flash_attention_bwd_ms_per_call": bwd_ms / n_bwd,
+        }
+        print(f"    device busy {busy:.3f} ms a step is {busy / med:.2%} of the unprofiled step's {med:.3f} ms")
+        print(f"    product kernels {products:.3f} ms ({products / busy:.2%}); flash_attention {fwd_ms:.3f} ms "
+              f"({fwd_ms / busy:.2%}, {fwd_n} kernels, {fwd_ms / max(fwd_n, 1):.4f} ms each); "
+              f"flash_attention_bwd {bwd_ms:.3f} ms ({bwd_ms / busy:.2%}, {bwd_ms / n_bwd:.4f} ms a call)")
+    mfu = mf / (med / 1e3) / H100_SXM.peak_flops_bf16
+    print(
+        f"  warm: train step {med:.3f} ms (median of {PROD_TIMED}; {', '.join(f'{t:.3f}' for t in step_ms)}), "
+        f"{tokens / med * 1e3:.1f} tokens/s, peak memory {peak:.2f} GiB; model-FLOPs utilization {mfu:.4%} "
+        f"of {H100_SXM.peak_flops_bf16 / 1e12:.1f} TFLOP/s bf16 on {card_line()}; {time.perf_counter() - t0:.2f} s"
+    )
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": med, "tokens_per_s": tokens / med * 1e3, "peak_gib": peak,
+            "model_flops": mf, "counted_flops": counted, "mfu_bf16": mfu, "card": card_line(),
+            "reduced": f"global batch {INPUT_SHAPES['train_4k'].global_batch} -> {PROD_SHAPE.global_batch}",
+            **shares}
+
+
+def phase_prod_check() -> None:
+    """Full width at PROD_CHECK_LAYERS layers, 1 x 4096, bfloat16: the
+    gradient of forward_loss through the kernels against the plain
+    versions' (every leaf within PROD_GRAD_TOL of its norm), and each one's
+    distance from the float32 plain gradient of the same parameters."""
+    for name in PROD_ARCHS:
+        cfg = dataclasses.replace(ARCHS[name], n_layers=PROD_CHECK_LAYERS[name])
+        params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(3), device=DEVICE)
+        batch = next(batches_for_arch(cfg, 1, PROD_SHAPE.seq_len, seed=4, device=DEVICE))
+        for k in KERNELS:
+            k["wrapper"].launches = 0
+        loss, got = param_grads(cfg, params, batch)
+        kernel_launches = launch_counts()
+        with plain_kernels():
+            plain_loss, want = param_grads(cfg, params, batch)
+            f32_loss, exact = param_grads(cfg, _upcast(params), batch)
+        assert launch_counts() == kernel_launches, "the plain check launched a kernel"
+        assert kernel_launches["flash_attention_bwd"] == cfg.n_layers, kernel_launches
+
+        def rel(a, b):
+            return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+        errs = {path: rel(g, w) for (path, g), (_, w) in zip(got, want)}
+        worst = max(errs, key=errs.get)
+        kern32 = max(rel(g, e) for (_, g), (_, e) in zip(got, exact))
+        plain32 = max(rel(w, e) for (_, w), (_, e) in zip(want, exact))
+        windows = sorted(set(tf.layer_window_values(cfg)))
+        print(f"  {name}, {cfg.n_layers} layers (windows {windows}), 1 x {PROD_SHAPE.seq_len}, bf16: loss {loss:.6f} "
+              f"vs plain {plain_loss:.6f} (float32 plain {f32_loss:.6f}); gradient of {len(errs)} leaves, largest "
+              f"error over norm {errs[worst]:.3e} ({worst}), tol {PROD_GRAD_TOL:.3e}; against the float32 plain "
+              f"gradient: kernels {kern32:.3e}, bf16 plain {plain32:.3e}")
+        if errs[worst] > PROD_GRAD_TOL or abs(loss - plain_loss) > PROD_GRAD_TOL * abs(plain_loss):
+            raise AssertionError(f"{name}: the kernels' bf16 gradient disagrees with the plain versions'")
+        del params, got, want, exact
+    torch.cuda.empty_cache()
+
+
+def _upcast(params):
+    return tree_unflatten(params, [p.float() for _, p in leaves_with_paths(params)])
+
+
+def phase_prod_times(calls: Counter) -> dict[str, list[dict]]:
+    """flash_attention and its backward at each bf16 shape of the
+    production train path: kernel (eager, graph), plain version, SDPA's
+    forward and backward, bounds at the bf16 rate (and the backward's at
+    the split-TF32 rate its products run at)."""
+    out = {"flash_attention": [], "flash_attention_bwd": []}
+    steps = PROD_TIMED + 1
+    print("times at the bf16 production train shapes (ms per call, CUDA events):")
+    for key in PROD_FLASH_SHAPES:
+        dtype = torch.bfloat16
+        n_fwd = calls["flash_attention", key, dtype] // steps
+        n_bwd = calls["flash_attention_bwd", key, dtype] // steps
+        q, k, v = flash_operands(key, dtype, seed=0)
+        do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(dtype).to(DEVICE)
+        scale, window = key[4] ** -0.5, key[5]
+        o = causal_attention(q, k, v, scale=scale, window=window)
+        fwd = lambda: causal_attention(q, k, v, scale=scale, window=window)  # noqa: E731
+        bwd = lambda: causal_attention_bwd(q, k, v, o, do, scale=scale, window=window)  # noqa: E731
+        f_bound, f_by = flash_bound(key, dtype)
+        b_bound, b_by = bwd_bound(key, dtype)
+        f = {"shape": list(key), "dtype": "bfloat16", "route": route(dtype, key[4]), "calls_a_step": n_fwd,
+             "ms": time_ms(fwd, 20), "graph_ms": time_graph_ms(fwd, calls=10, replays=5),
+             "plain_ms": time_ms(lambda: causal_attention_plain(q, k, v, scale=scale, window=window), 3, warmup=1),
+             "library_ms": time_ms(sdpa_call(q, k, v, scale, window), 20),
+             "bound_ms": f_bound, "bound_by": f_by}
+        b = {"shape": list(key), "dtype": "bfloat16", "calls_a_step": n_bwd,
+             "ms": time_ms(bwd, 10, warmup=2), "graph_ms": time_graph_ms(bwd, calls=5, replays=3),
+             "plain_ms": time_ms(lambda: causal_attention_bwd_plain(q, k, v, o, do, scale=scale, window=window),
+                                 3, warmup=1),
+             "library_ms": time_ms(sdpa_bwd_call(q, k, v, do, scale, window), 10, warmup=2),
+             "bound_ms": b_bound, "bound_by": b_by,
+             "bound_split_tf32_ms": bwd_bound(key, dtype, SPLIT_TF32_OPS_PER_S)[0]}
+        print(f"  (B,S,H,KV,hd,window)={key} bf16, {f['route']}, {n_fwd} calls a step: kernel={f['ms']:.6f} "
+              f"graph={f['graph_ms']:.6f} plain={f['plain_ms']:.6f} sdpa={f['library_ms']:.6f} "
+              f"bound={f_bound:.6f} ({f_by}, bf16) graph share={f_bound / f['graph_ms']:.4%} "
+              f"kernel / sdpa={f['ms'] / f['library_ms']:.3f}")
+        print(f"    backward, {n_bwd} calls a step: kernel={b['ms']:.6f} graph={b['graph_ms']:.6f} "
+              f"plain={b['plain_ms']:.6f} sdpa_backward={b['library_ms']:.6f} bound={b_bound:.6f} ({b_by}, bf16) "
+              f"graph share={b_bound / b['graph_ms']:.4%}; split-TF32 bound={b['bound_split_tf32_ms']:.6f} "
+              f"graph share={b['bound_split_tf32_ms'] / b['graph_ms']:.4%}; "
+              f"kernel / sdpa_backward={b['ms'] / b['library_ms']:.3f}")
+        out["flash_attention"].append(f)
+        out["flash_attention_bwd"].append(b)
+        del q, k, v, o, do
+    return out
+
+
+# --------------------------------------------------------------------------
 # SwapLess simulators, plan evaluator and online controller on the card: the
 # reference's jitted recurrences (ROADMAP B1-B5), ported as torch ops
 # --------------------------------------------------------------------------
@@ -2544,6 +2804,24 @@ def main() -> int:
     ))
     phase("train correctness: gradients, microbatches, loss", phase_train_check)
 
+    phase("kernel vs plain: flash_attention at the bf16 production train shapes", check_flash,
+          PROD_FLASH_SHAPES, (torch.bfloat16,))
+    phase("kernel vs plain: flash_attention_bwd at the bf16 production train shapes, and against float64",
+          check_flash_bwd, PROD_FLASH_SHAPES, (torch.bfloat16,), True)
+    mesh = make_host_mesh(1, 1)
+    prod_calls = Counter()
+    prod = {}
+    try:
+        for name in PROD_ARCHS:
+            prod[name] = phase(f"production train path (bf16): {name}", phase_prod_train, name, mesh, prod_calls)
+            launches.update(prod[name]["launches"])
+    finally:
+        torch.distributed.destroy_process_group()
+    print("production train path kernel calls per step: " + "; ".join(
+        f"{k} {key} {str(dt)[6:]} x{n // (PROD_TIMED + 1)}" for (k, key, dt), n in prod_calls.items()
+    ))
+    phase("production train correctness: bf16 gradient, kernels against plain versions", phase_prod_check)
+
     # wkv6's route at each (type, head_dim) it ran at on the path and in the
     # float32 full-forward check.
     wkv_routes = {
@@ -2564,6 +2842,8 @@ def main() -> int:
     times["flash_attention_bwd"], train_forward = phase("times: flash_attention_bwd", phase_train_times, train_calls)
     times["wkv6_bwd"], wkv_train_forward = phase("times: wkv6_bwd", phase_wkv_train_times, train_calls,
                                                  train["rwkv6-7b"]["bwd_kernel_ms_per_call"])
+    prod_times = phase("times: flash_attention and flash_attention_bwd at the bf16 production train shapes",
+                       phase_prod_times, prod_calls)
 
     line = []
     for k in KERNELS:
@@ -2585,17 +2865,21 @@ def main() -> int:
                 "launches_by_path": {n: v["flash_attention"] for n, v in zoo_launches.items()
                                                           if "flash_attention" in v}
                 | {f"train {n}": v["launches"]["flash_attention"] for n, v in train.items()
-                   if v["launches"]["flash_attention"]},
-                "routes": flash_routes, "train_forward_f32": train_forward} if name == "flash_attention" else {}),
+                   if v["launches"]["flash_attention"]}
+                | {f"production train bf16 {n}": v["launches"]["flash_attention"] for n, v in prod.items()},
+                "routes": flash_routes, "train_forward_f32": train_forward,
+                "train_bf16": prod_times["flash_attention"]} if name == "flash_attention" else {}),
             **({"sass_hmma": hmma, "routes": wkv_routes, "train_forward_f32": wkv_train_forward,
                 "registers": wkv_resources["registers"], "smem_bytes": wkv_resources["smem_bytes"],
                 "launches_by_path": {n: v["wkv6"] for n, v in zoo_launches.items() if "wkv6" in v}
                 | {f"train {n}": v["launches"]["wkv6"] for n, v in train.items() if v["launches"]["wkv6"]}}
                if name == "wkv6" else {}),
             **({"launches_by_path": {f"train {n}": v["launches"][name] for n, v in train.items()
-                                      if v["launches"][name]},
+                                      if v["launches"][name]}
+                | {f"production train bf16 {n}": v["launches"][name] for n, v in prod.items()},
                 "shapes": sorted({str(key) for (k2, key, _dt) in train_calls if k2 == name}),
-                "sass_hmma": bwd_hmma, "sass_dmma": bwd_dmma, "registers": bwd_resources["registers"]}
+                "sass_hmma": bwd_hmma, "sass_dmma": bwd_dmma, "registers": bwd_resources["registers"],
+                "train_bf16": prod_times["flash_attention_bwd"]}
                if name == "flash_attention_bwd" else {}),
             **({"launches_by_path": {f"train {n}": v["launches"][name] for n, v in train.items()
                                       if v["launches"][name]},
@@ -2606,7 +2890,7 @@ def main() -> int:
         })
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"torch_ops": torch_ops, "ssm_scans": scans}))
-    print(json.dumps({"train": train}))
+    print(json.dumps({"train": train, "production_train_bf16": prod}))
     print(json.dumps({"kernels": line}))
     print(json.dumps({
         "ok": True,

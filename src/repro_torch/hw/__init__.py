@@ -1,9 +1,6 @@
-"""Hardware model of the paper's testbed (planner input).
-
-Re-exports the reference's public names that the port holds; the TPU v5e
-specs (``TPU_V5E``, ``TPU_V5E_SERVING_PLATFORM``, ``TPUChipSpec``) are not
-ported yet.
-"""
+"""Hardware models: the paper's testbed (planner input) and the reference's
+TPU v5e constants, under the reference package's names.  The port's own
+GPU, ``H100_SXM``, is in ``repro_torch.hw.specs``."""
 from repro_torch.hw.specs import (
     AcceleratorSpec,
     CORAL_EDGE_TPU,
@@ -11,6 +8,9 @@ from repro_torch.hw.specs import (
     EDGE_TPU_PLATFORM,
     HostCPUSpec,
     Platform,
+    TPU_V5E,
+    TPU_V5E_SERVING_PLATFORM,
+    TPUChipSpec,
 )
 
 __all__ = [
@@ -20,4 +20,7 @@ __all__ = [
     "EDGE_TPU_PLATFORM",
     "HostCPUSpec",
     "Platform",
+    "TPU_V5E",
+    "TPU_V5E_SERVING_PLATFORM",
+    "TPUChipSpec",
 ]

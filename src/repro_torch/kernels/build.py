@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
 
@@ -86,3 +87,20 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _loaded[name] = ctypes.CDLL(str(build(name)))
         return lib
+
+
+def refuse_dtensors(kernel: str, *tensors) -> None:
+    """Raise ``TypeError`` naming ``kernel`` if one of ``tensors`` is a
+    DTensor on the card: the hand kernels take plain CUDA tensors, and a
+    sharded operand must be made local (or replicated) by its caller, never
+    handed to a plain version instead.  DTensors on the host go on to the
+    plain versions, which are torch ops."""
+    tensor_mod = sys.modules.get("torch.distributed.tensor")
+    if tensor_mod is None:
+        return
+    for t in tensors:
+        if isinstance(t, tensor_mod.DTensor) and t.device.type == "cuda":
+            raise TypeError(
+                f"the {kernel} kernel takes plain CUDA tensors; got a DTensor "
+                f"{tuple(t.shape)} with placements {t.placements}"
+            )

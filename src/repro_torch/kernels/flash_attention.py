@@ -336,6 +336,7 @@ def causal_attention_bwd(
     cannot; on CPU tensors it computes ``causal_attention_bwd_plain``.
     ``causal_attention_bwd.launches`` counts the calls that launched them.
     """
+    build.refuse_dtensors("flash_attention_bwd", q, k, v, o, do)
     _check(q, k, v)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -411,8 +412,9 @@ def causal_attention(
     (grad mode on and an input requiring grad) the call goes through
     ``_FlashAttention``, whose backward is ``causal_attention_bwd``.
     ``causal_attention.launches`` counts the launches of either forward
-    kernel.
+    kernel.  A DTensor on the card raises ``TypeError``.
     """
+    build.refuse_dtensors("flash_attention", q, k, v)
     _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, scale, window)

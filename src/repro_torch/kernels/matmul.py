@@ -104,8 +104,10 @@ def matmul(
     cannot; on CPU tensors it computes ``matmul_plain``.  A CUDA call that
     autograd would record (grad mode on and an operand requiring grad)
     raises ``NotImplementedError``: the kernel has no backward yet.
-    ``matmul.launches`` counts the launches of either kernel.
+    ``matmul.launches`` counts the launches of either kernel.  A DTensor
+    on the card raises ``TypeError``.
     """
+    build.refuse_dtensors("block_matmul", x, y)
     out_dtype = out_dtype or x.dtype
     _check(x, y, out_dtype)
     if x.device.type == "cpu":

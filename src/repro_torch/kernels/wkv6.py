@@ -120,17 +120,19 @@ def wkv6_bwd_plain(
     rc, kc, vc, wc, do = (a.to(ct) for a in (r, k, v, w, dout))
     uc = u.to(ct)
     s = torch.zeros((b, h, hd, hd), dtype=ct, device=r.device) if state is None else state.to(ct)
-    prev = torch.empty((t_len, b, h, hd, hd), dtype=ct, device=r.device)   # S_{t-1}
+    prev = []                                                  # S_{t-1}
     for t in range(t_len):
-        prev[t] = s
+        prev.append(s)
         s = wc[:, t, :, :, None] * s + kc[:, t, :, :, None] * vc[:, t, :, None, :]
+    prev = torch.stack(prev)                                   # (T, B, H, hd, hd)
     g = torch.zeros_like(s) if dfinal is None else dfinal.to(ct).clone()
-    dk, dv, dw = (torch.empty((b, t_len, h, hd), dtype=ct, device=r.device) for _ in range(3))
+    dk, dv, dw = [], [], []                                    # in reverse time
     for t in reversed(range(t_len)):
-        dk[:, t] = (g @ vc[:, t, :, :, None])[..., 0]
-        dv[:, t] = (kc[:, t, :, None, :] @ g)[..., 0, :]
-        dw[:, t] = (g * prev[t]).sum(-1)
+        dk.append((g @ vc[:, t, :, :, None])[..., 0])
+        dv.append((kc[:, t, :, None, :] @ g)[..., 0, :])
+        dw.append((g * prev[t]).sum(-1))
         g = wc[:, t, :, :, None] * g + rc[:, t, :, :, None] * do[:, t, :, None, :]
+    dk, dv, dw = (torch.stack(a[::-1], dim=1) for a in (dk, dv, dw))
     vd = (vc * do).sum(-1, keepdim=True)                       # (B, T, H, 1)
     dr = torch.einsum("tbhij,bthj->bthi", prev, do) + uc * kc * vd
     dk = dk + rc * uc * vd
@@ -250,6 +252,7 @@ def wkv6_bwd(
     CPU tensors it computes ``wkv6_bwd_plain``.  ``wkv6_bwd.launches``
     counts the calls that launched them.
     """
+    build.refuse_dtensors("wkv6_bwd", r, k, v, w, u, state, dout, dfinal)
     _check(r, k, v, w, u, state)
     b, t_len, h, hd = r.shape
     if tuple(dout.shape) != tuple(r.shape) or dout.dtype != torch.float32 or dout.device != r.device:
@@ -337,8 +340,10 @@ def wkv6(
     tensors it computes ``wkv6_plain``.  When autograd records a CUDA call
     (grad mode on and an input requiring grad) the call goes through
     ``_WKV6``, whose backward is ``wkv6_bwd``.  ``wkv6.launches`` counts the
-    launches of either forward kernel.
+    launches of either forward kernel.  A DTensor on the card raises
+    ``TypeError``.
     """
+    build.refuse_dtensors("wkv6", r, k, v, w, u, state)
     _check(r, k, v, w, u, state)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, state)

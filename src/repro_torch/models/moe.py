@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import Params, normal
+from repro_torch.models.sharding_utils import constrain, replica
 
 
 def moe_init(
@@ -104,6 +105,7 @@ def _moe_groups(
     p: Params,
     k: int,
     C: int,
+    weight_gather: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Capacity-bounded dispatch within each group; returns (y (G, gs, D),
     frac_tokens (E,), frac_probs (E,))."""
@@ -111,22 +113,38 @@ def _moe_groups(
     E = p["router"].shape[-1]
     gates, assigned, keep, _, probs = route(xg, p["router"], k, C)
 
+    # The kept pairs' count depends on the data, which DTensor cannot
+    # propagate: the pairs are found on keep's full value, then lifted back.
+    keep, lift = replica(keep)
     rows, experts = keep.reshape(G * gs, E).nonzero(as_tuple=True)   # token-major
     order = torch.argsort(experts, stable=True)
     rows, experts = rows[order], experts[order]
-    combine = gates.reshape(G * gs, E)[rows, experts].to(xg.dtype).float()
     counts = torch.bincount(experts, minlength=E).tolist()
+    rows, experts = lift(rows), lift(experts)
+    combine = gates.reshape(G * gs, E)[rows, experts].to(xg.dtype).float()
 
+    w_gate, w_in, w_out = p["w_gate"], p["w_in"], p["w_out"]
+    if weight_gather:
+        # The reference's expert-parallel layout: expert weights keep E
+        # sharded and gather the intra-expert shards at use; an expert's
+        # tokens (the reference's capacity dim) shard over 'data'.
+        w_gate = constrain(w_gate, "model", None, None)
+        w_in = constrain(w_in, "model", None, None)
+        w_out = constrain(w_out, "model", None, None)
     xf = xg.reshape(G * gs, D)
-    y = torch.zeros((G * gs, D), dtype=torch.float32, device=xg.device)
+    y = torch.zeros_like(xf, dtype=torch.float32)
     start = 0
     for e, n in enumerate(counts):
         if n == 0:
             continue
         idx = rows[start : start + n]
         xe = xf[idx]
-        h = F.silu(xe @ p["w_gate"][e]) * (xe @ p["w_in"][e])
-        ye = h @ p["w_out"][e]
+        if weight_gather:
+            xe = constrain(xe, "data", None)
+        h = F.silu(xe @ w_gate[e]) * (xe @ w_in[e])
+        ye = h @ w_out[e]
+        if weight_gather:
+            ye = constrain(ye, "data", None)
         y.index_add_(0, idx, ye.float() * combine[start : start + n, None])
         start += n
     return y.to(xg.dtype).reshape(G, gs, D), assigned.mean((0, 1)), probs.mean((0, 1))
@@ -150,9 +168,8 @@ def moe_ffn(
     that many at a time, as the reference's ``lax.map`` does, which bounds
     live memory and averages the load statistics per chunk.
     ``weight_gather`` is the reference's sharding hint for expert-parallel
-    layouts; on one card it has no meaning and is accepted as a no-op.
+    layouts (``constrain``): it acts only on DTensors under an active mesh.
     """
-    del weight_gather
     B, S, D = x.shape
     E = p["router"].shape[-1]
     T = B * S
@@ -165,12 +182,12 @@ def moe_ffn(
     xg = x.reshape(G, gs, D)
 
     if G > scan_group_chunk and G % scan_group_chunk == 0:
-        parts = [_moe_groups(xc, p, k, C) for xc in xg.split(scan_group_chunk)]
+        parts = [_moe_groups(xc, p, k, C, weight_gather) for xc in xg.split(scan_group_chunk)]
         y = torch.cat([part[0] for part in parts])
         frac_tokens = torch.stack([part[1] for part in parts]).mean(0)
         frac_probs = torch.stack([part[2] for part in parts]).mean(0)
     else:
-        y, frac_tokens, frac_probs = _moe_groups(xg, p, k, C)
+        y, frac_tokens, frac_probs = _moe_groups(xg, p, k, C, weight_gather)
 
     aux = E * torch.sum(frac_tokens * frac_probs)
     entropy = -torch.sum(frac_probs * torch.log(frac_probs + 1e-9))

@@ -12,8 +12,9 @@ parameter dict per layer and runs every path as a plain loop over layers.
 For training, ``backbone`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``) as the reference's ``jax.checkpoint`` of its
 layer group does, and ``forward_loss`` is the next-token cross-entropy.
-The reference's sharding constraints have no meaning on one card and are
-left out.
+The reference's sharding constraints (``models/sharding_utils.py``) sit
+where the reference has them; they act only on DTensors under an active
+mesh, so the paths on plain tensors are unchanged.
 
 * The full forward (``embed_inputs`` -> ``backbone`` -> ``unembed``),
   ``forward_loss`` and ``prefill_step`` run attention through the
@@ -55,6 +56,7 @@ from repro_torch.models.layers import (
     normal,
     rms_norm,
 )
+from repro_torch.models.sharding_utils import constrain
 
 DEFAULT_DTYPE = torch.bfloat16
 
@@ -167,6 +169,10 @@ def _zero_rwkv_state(cfg: ArchConfig, h: torch.Tensor):
     )
 
 
+def _batch_token(cfg: ArchConfig) -> str:
+    return "batch_full" if cfg.parallelism == "fsdp" else "batch"
+
+
 def _attn_kw(cfg: ArchConfig) -> dict:
     return dict(
         n_heads=cfg.n_heads,
@@ -211,7 +217,7 @@ def _transformer_layer(
         y = 0.5 * (y + y_ssm)
     h = h + y
     y2, aux = _ffn(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
-    return h + y2, aux
+    return constrain(h + y2, _batch_token(cfg), None, None), aux
 
 
 # Products whose outputs the "dots" policy keeps for the backward pass, as
@@ -232,7 +238,7 @@ def backbone(
     h: torch.Tensor,
     positions: torch.Tensor | None = None,
     *,
-    remat: bool = False,
+    remat: bool = True,
     remat_policy: str = "nothing",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run every layer over h (B, S, D); returns (hidden states, the MoE
@@ -289,15 +295,19 @@ def embed_inputs(
             torch.zeros((b, n_p), dtype=torch.float32, device=tok.device),
             torch.ones((b, s_text), dtype=torch.float32, device=tok.device),
         ], dim=1)
-        return torch.cat([patches, tok], dim=1), mask
+        return constrain(torch.cat([patches, tok], dim=1), _batch_token(cfg), None, None), mask
     if cfg.frontend == "audio":
-        return _project(batch["frame_embeds"], params["frontend_proj"]), None
-    return params["embed"][batch["tokens"]], None
+        h = _project(batch["frame_embeds"], params["frontend_proj"])
+        return constrain(h, _batch_token(cfg), None, None), None
+    return constrain(params["embed"][batch["tokens"]], _batch_token(cfg), None, None), None
 
 
 def unembed(cfg: ArchConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return h @ params["lm_head"]
+    logits = h @ params["lm_head"]
+    if cfg.parallelism == "fsdp":
+        return constrain(logits, "batch_full", None, None)
+    return constrain(logits, "batch", None, "model")
 
 
 def forward_loss(
@@ -405,7 +415,7 @@ def decode_step(
             y = 0.5 * (y + y_ssm)
         h = h + y
         y2, _ = _ffn(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
-        h = h + y2
+        h = constrain(h + y2, _batch_token(cfg), None, None)
         new_caches.append(new_cache)
     return unembed(cfg, params, h), new_caches
 
@@ -468,7 +478,7 @@ def prefill_step(
             y = 0.5 * (y + y_ssm)
         h = h + y
         y2, _ = _ffn(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
-        h = h + y2
+        h = constrain(h + y2, _batch_token(cfg), None, None)
         caches.append(cache)
     return unembed(cfg, params, h[:, -1:, :]), caches
 

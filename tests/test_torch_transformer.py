@@ -233,7 +233,7 @@ def test_full_forward_matches_the_reference(name):
         assert np.array_equal(mask.numpy(), np.asarray(ref_mask))
     _close(h, ref_h, msg=f"{name}: embeddings")
     ref_h, ref_aux = ref_tf.backbone(ref_cfg, ref_params, ref_h, remat=False)
-    h, aux = backbone(cfg, params, h)
+    h, aux = backbone(cfg, params, h, remat=False)
     _close(aux, ref_aux, msg=f"{name}: MoE load-balance loss")
     assert (float(aux) > 0) == cfg.is_moe
     _close(unembed(cfg, params, h), ref_tf.unembed(ref_cfg, ref_params, ref_h), msg=f"{name}: logits")
@@ -255,7 +255,7 @@ def test_prefill_then_decode_equals_the_full_forward(name):
     prompt = (20 if cfg.window else 8) + n_patches
     patches, seq = _stream(cfg, 1, prompt + 4, seed=1)
     h, _ = embed_inputs(cfg, params, _batch(cfg, patches, seq, "torch"))
-    full = unembed(cfg, params, backbone(cfg, params, h)[0])
+    full = unembed(cfg, params, backbone(cfg, params, h, remat=False)[0])
     first = prompt - n_patches
     logits, caches = prefill_step(cfg, params, _batch(cfg, patches, seq[:, :first], "torch"), max_len=32)
     torch.testing.assert_close(logits[:, 0], full[:, prompt - 1], rtol=2e-3, atol=2e-3)

@@ -116,6 +116,19 @@ and prints no result line):
    gradient of ``forward_loss`` in bf16 through the kernels against the
    plain versions' at full width, 1 x 4096 (qwen 2 layers, gemma3-1b 6),
    every leaf within ``PROD_GRAD_TOL`` of its norm;
+7e. the dry run against the card: qwen1.5-0.5b and gemma3-1b at full
+   width and depth on a one-rank mesh (``make_host_mesh``), three bundles
+   each: ``train_4k`` at global batch 2 (2 microbatches of 1 x 4096),
+   ``prefill_32k`` at global batch 1 (32,768 tokens) and ``decode_32k`` at
+   global batch 8.  For each, ``roofline.counter.count`` on the bundle's
+   fake CUDA tensors (the dry run's per-rank plan; no kernel may launch),
+   then the same bundle for real (``materialize``, one call of ``fn``):
+   the predicted ``peak_bytes`` beside the bytes that
+   ``torch.cuda.max_memory_allocated`` gained over the call and
+   ``materialize`` (it fails outside [0.85, 1.15]), the counted FLOPs
+   beside ``count_step`` of the same bundle on fake host tensors (they
+   must be equal), and ``compute_s`` and ``memory_s`` beside the call's
+   device time (CUDA events);
 8. the device stepper's recurrence: ``lindley_ends`` on the card at 7,
    4097 and 2^20 requests (a clock past 5,000 s) against the float64
    ``_server_ends``, within 2e-6 s of delay;
@@ -208,11 +221,13 @@ from repro_torch.kernels.wkv6 import route as wkv_route  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd, wkv6_bwd_plain, wkv6_plain  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
-from repro_torch.launch.steps import build_train, materialize  # noqa: E402
+from repro_torch.launch.mesh import MeshView  # noqa: E402
+from repro_torch.launch.steps import build_step, build_train, materialize  # noqa: E402
+from repro_torch.roofline.analysis import analyze_compiled  # noqa: E402
 from repro_torch.models import attention, cnn, frontend, moe, rwkv, ssm  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.roofline import model_flops  # noqa: E402
-from repro_torch.roofline.counter import count_step  # noqa: E402
+from repro_torch.roofline.counter import count, count_step  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving import torch_stepper  # noqa: E402
 from repro_torch.serving.controller import run_adaptive  # noqa: E402
@@ -2193,6 +2208,82 @@ def phase_prod_train(name: str, mesh, calls: Counter) -> dict:
             **shares}
 
 
+# Phase 7e: the bundles whose per-rank plan the dry run predicts, checked
+# against what the caching allocator holds when they run.
+DRYRUN_ARCHS = ("qwen1.5-0.5b", "gemma3-1b")
+DRYRUN_SHAPES = (
+    dataclasses.replace(INPUT_SHAPES["train_4k"], global_batch=2),
+    dataclasses.replace(INPUT_SHAPES["prefill_32k"], global_batch=1),
+    dataclasses.replace(INPUT_SHAPES["decode_32k"], global_batch=8),
+)
+# The predicted peak over the measured one.
+DRYRUN_PEAK_RATIO = (0.85, 1.15)
+
+
+def phase_dryrun_card() -> list[dict]:
+    """Phase 7e: each bundle's dry-run plan (fake CUDA tensors) against the
+    same bundle run on the card; returns one record per bundle."""
+    records = []
+    mesh = make_host_mesh(1, 1)
+    try:
+        for name in DRYRUN_ARCHS:
+            cfg = ARCHS[name]
+            for shape in DRYRUN_SHAPES:
+                records.append(dryrun_card_bundle(cfg, shape, mesh))
+    finally:
+        torch.distributed.destroy_process_group()
+    bad = [r for r in records if not DRYRUN_PEAK_RATIO[0] <= r["peak_ratio"] <= DRYRUN_PEAK_RATIO[1]]
+    if bad:
+        raise AssertionError(f"predicted peak outside {DRYRUN_PEAK_RATIO} of the measured one: {bad}")
+    return records
+
+
+def dryrun_card_bundle(cfg, shape, mesh) -> dict:
+    label = f"{cfg.name} x {shape.name} (global batch {shape.global_batch})"
+    bundle = build_step(cfg, shape, mesh)
+    first = leaves_with_paths(bundle.args)[0][1]
+    assert first.device.type == "cuda", f"{label}: abstract arguments on {first.device}"
+    before = launch_counts()
+    t = time.perf_counter()
+    costs, memory = count(bundle)
+    count_s = time.perf_counter() - t
+    assert launch_counts() == before, f"{label}: a kernel launched during the fake run"
+    host = count_step(build_step(cfg, shape, MeshView({"data": 1, "model": 1}, ("data", "model"))))
+    assert costs.flops == host.flops, f"{label}: {costs.flops} FLOPs on the card's fake tensors, {host.flops} on the host's"
+    roof = analyze_compiled(cfg, shape, mesh, costs)["roofline"]
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    args = materialize(bundle, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    if shape.kind == "decode":
+        args = (*args[:3], 0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = bundle.fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    call_ms = start.elapsed_time(end)
+    finite = all(bool(torch.isfinite(t.float()).all()) for _, t in leaves_with_paths(out)
+                 if isinstance(t, torch.Tensor) and t.is_floating_point())
+    del args, out
+    torch.cuda.empty_cache()
+    ratio = memory["peak_bytes"] / measured
+    print(f"  {label}: predicted peak {memory['peak_bytes'] / 2**30:.3f} GiB (arguments "
+          f"{memory['argument_bytes'] / 2**30:.3f}, outputs {memory['output_bytes'] / 2**30:.3f}), "
+          f"max_memory_allocated over materialize and the call {measured / 2**30:.3f} GiB, ratio {ratio:.4f}; "
+          f"FLOPs {costs.flops:.6e} on the card's fake tensors = {host.flops:.6e} on the host's; "
+          f"compute_s {roof['compute_s'] * 1e3:.3f} ms, memory_s {roof['memory_s'] * 1e3:.3f} ms, call "
+          f"{call_ms:.3f} ms on the card (CUDA events); fake run {count_s:.2f} s")
+    assert finite, f"{label}: non-finite output"
+    return {"arch": cfg.name, "shape": shape.name, "global_batch": shape.global_batch,
+            "peak_bytes": memory["peak_bytes"], "argument_bytes": memory["argument_bytes"],
+            "output_bytes": memory["output_bytes"], "measured_bytes": measured, "peak_ratio": ratio,
+            "flops": costs.flops, "host_flops": host.flops, "compute_s": roof["compute_s"],
+            "memory_s": roof["memory_s"], "call_ms": call_ms, "count_s": count_s, "card": card_line()}
+
+
 def phase_prod_check() -> None:
     """Full width at PROD_CHECK_LAYERS layers, 1 x 4096, bfloat16: the
     gradient of forward_loss through the kernels against the plain
@@ -2821,6 +2912,7 @@ def main() -> int:
         f"{k} {key} {str(dt)[6:]} x{n // (PROD_TIMED + 1)}" for (k, key, dt), n in prod_calls.items()
     ))
     phase("production train correctness: bf16 gradient, kernels against plain versions", phase_prod_check)
+    dryrun = phase("dry run against the card: predicted per-rank peak and FLOPs", phase_dryrun_card)
 
     # wkv6's route at each (type, head_dim) it ran at on the path and in the
     # float32 full-forward check.
@@ -2890,7 +2982,7 @@ def main() -> int:
         })
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"torch_ops": torch_ops, "ssm_scans": scans}))
-    print(json.dumps({"train": train, "production_train_bf16": prod}))
+    print(json.dumps({"train": train, "production_train_bf16": prod, "dryrun_vs_card": dryrun}))
     print(json.dumps({"kernels": line}))
     print(json.dumps({
         "ok": True,

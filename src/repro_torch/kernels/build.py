@@ -6,6 +6,14 @@ the checkout, at first use, and loaded with ``ctypes``.  The library's file
 name carries a hash of its source and of the headers beside it
 (``csrc/*.cuh``), so an edited source or header is rebuilt and a built one
 is reused.  Nothing here runs when the module is imported.
+
+Every kernel has a fake form besides: on fake tensors (``FakeTensorMode``,
+shapes and dtypes without storage) its wrapper allocates what it would
+allocate on the card and calls, in place of the launch, the op that
+``fake_launch`` defines.  That op does nothing, and carries the plain
+version's FLOP formula for ``torch.utils.flop_counter``, so that a counted
+fake run of a step (``roofline.counter``) sees the kernel's memory and
+FLOPs and runs neither the kernel nor its plain version.
 """
 from __future__ import annotations
 
@@ -17,6 +25,10 @@ import subprocess
 import sys
 import threading
 from pathlib import Path
+from typing import Callable
+
+import torch
+from torch.utils.flop_counter import register_flop_formula
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 # <checkout>/src/repro_torch/kernels/build.py -> <checkout>/build/repro_torch
@@ -104,3 +116,42 @@ def refuse_dtensors(kernel: str, *tensors) -> None:
                 f"the {kernel} kernel takes plain CUDA tensors; got a DTensor "
                 f"{tuple(t.shape)} with placements {t.placements}"
             )
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor (``FakeTensorMode``'s): shapes and
+    dtypes on a device, no storage.  No tensor can be fake before the fake
+    tensor module is imported, so the check costs no import."""
+    fake = sys.modules.get("torch._subclasses.fake_tensor")
+    return fake is not None and isinstance(t, fake.FakeTensor)
+
+
+def refuse_fake_cuda(kernel: str, *tensors) -> None:
+    """Raise ``TypeError`` if one of ``tensors`` is a fake CUDA tensor: a
+    plain version stands for its kernel on the host only, and a fake run on
+    the card takes the kernel's fake form."""
+    for t in tensors:
+        if is_fake(t) and t.device.type == "cuda":
+            raise TypeError(f"{kernel}'s plain version reached by a fake CUDA tensor {tuple(t.shape)}")
+
+
+def fake_launch(name: str, flops: Callable[..., int]) -> Callable[[list, list], None]:
+    """The op ``repro_torch::<name>_launch(inputs, outputs)`` that stands
+    for the launch of kernel ``name`` in its fake form: on fake tensors it
+    does nothing and leaves ``outputs`` (allocated by the caller) as they
+    are; ``flops(*input_shapes)`` is its count for
+    ``torch.utils.flop_counter``.  A real tensor raises."""
+
+    @torch.library.custom_op(f"repro_torch::{name}_launch", mutates_args=("outputs",))
+    def launch(inputs: list[torch.Tensor], outputs: list[torch.Tensor]) -> None:
+        raise TypeError(f"the fake form of {name} takes fake tensors only")
+
+    @launch.register_fake
+    def _(inputs, outputs):
+        return None
+
+    @register_flop_formula(getattr(torch.ops.repro_torch, f"{name}_launch"))
+    def _(input_shapes, output_shapes, *, out_shape=None, **kwargs):
+        return flops(*input_shapes)
+
+    return launch

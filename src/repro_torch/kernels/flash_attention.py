@@ -29,6 +29,12 @@ head_dim), with ``causal_attention_bwd_plain`` as their plain version.
 Their dK/dV kernel walks a work list that ``dkdv_work`` builds in plain
 Python, once per shape.  The JAX package differentiates
 ``attention_chunked`` with XLA instead; it has no backward kernel.
+
+On fake tensors (a counted fake run of a step, ``roofline.counter``) the
+forward and the backward take their fake forms: the checks and allocations
+of the CUDA path, workspaces included, with ``fake_launch``'s op in place of
+the launch, counted at the plain versions' FLOPs.  Neither the kernels nor
+the plain versions run, and the ``launches`` counters stay as they are.
 """
 from __future__ import annotations
 
@@ -140,13 +146,37 @@ def dkdv_splits(items: np.ndarray) -> np.ndarray:
 
 
 @functools.cache
-def _dkdv_plan(b: int, s_len: int, h: int, kv: int, hd: int, window: int, device: torch.device):
-    """The work list and split list of one shape on ``device``, and the
-    partial slots they need; built once per shape."""
+def _dkdv_items(b: int, s_len: int, h: int, kv: int, hd: int, window: int) -> tuple[np.ndarray, int]:
+    """The work list of one shape and the partial slots it needs; built
+    once per shape."""
     items = dkdv_work(b, s_len, h, kv, bwd_tile_rows(hd), window)
-    splits = dkdv_splits(items)
-    slots = int(items[:, 6].max()) + 1 if len(items) else 0
-    return (torch.from_numpy(items).to(device), torch.from_numpy(splits).to(device), slots)
+    return items, int(items[:, 6].max()) + 1 if len(items) else 0
+
+
+@functools.cache
+def _dkdv_plan(b: int, s_len: int, h: int, kv: int, hd: int, window: int, device: torch.device):
+    """The work list and split list of one shape on ``device``; built once
+    per shape."""
+    items, _ = _dkdv_items(b, s_len, h, kv, hd, window)
+    return torch.from_numpy(items).to(device), torch.from_numpy(dkdv_splits(items)).to(device)
+
+
+def _plain_flops(q_shape, *_) -> int:
+    """``causal_attention_plain``'s count: two products over every
+    (query, key) pair of every query head."""
+    b, s, h, hd = q_shape
+    return 2 * (2 * b * h * s * s * hd)
+
+
+def _plain_bwd_flops(q_shape, *_) -> int:
+    """``causal_attention_bwd_plain``'s count: five such products (the
+    scores, ``do v^T``, dq, dk and dv)."""
+    b, s, h, hd = q_shape
+    return 5 * (2 * b * h * s * s * hd)
+
+
+_fake_forward = build.fake_launch("flash_attention", _plain_flops)
+_fake_backward = build.fake_launch("flash_attention_bwd", _plain_bwd_flops)
 
 
 @functools.cache
@@ -180,6 +210,7 @@ def causal_attention_plain(
     """The kernel's function in plain PyTorch: KV heads repeated, float32
     scores masked to ``NEG_INF``, softmax in float32, probabilities cast to
     v's dtype before the product with v; output in q's dtype."""
+    build.refuse_fake_cuda("flash_attention", q, k, v)
     s_len, h = q.shape[1], q.shape[2]
     rep = h // k.shape[2]
     k = k.repeat_interleave(rep, dim=2)
@@ -257,6 +288,7 @@ def causal_attention_bwd_plain(
     over its visible keys gives ``p`` (0 on masked pairs), ``delta = do .
     o`` gives ``ds = p (do v^T - delta)``; dk and dv are summed over the
     query heads of each KV head."""
+    build.refuse_fake_cuda("flash_attention_bwd", q, k, v, o, do)
     b, s_len, h, hd = q.shape
     kv = k.shape[2]
     rep = h // kv
@@ -295,13 +327,17 @@ def _check_kernel_shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, window: int) -> torch.Tensor:
-    if q.device.type == "cpu":
+    fake = build.is_fake(q)
+    if q.device.type == "cpu" and not fake:
         return causal_attention_plain(q, k, v, scale=scale, window=window)
     _check_kernel_shape(q, k, v)
     b, s, h, hd = q.shape
+    out = torch.empty_like(q)
+    if fake:
+        _fake_forward([q, k, v], [out])
+        return out
     check_alignment(q, k, v)
     kernel = _kernel()
-    out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = kernel(
@@ -333,7 +369,8 @@ def causal_attention_bwd(
     shape, dtype and device, contiguous; all five 16-byte-aligned, as the
     kernels copy 16-byte chunks with ``cp.async``) this launches the
     ``flash_attention_bwd`` kernels on the current stream and raises if it
-    cannot; on CPU tensors it computes ``causal_attention_bwd_plain``.
+    cannot; on CPU tensors it computes ``causal_attention_bwd_plain``, and
+    on fake tensors it takes its fake form.
     ``causal_attention_bwd.launches`` counts the calls that launched them.
     """
     build.refuse_dtensors("flash_attention_bwd", q, k, v, o, do)
@@ -344,21 +381,26 @@ def causal_attention_bwd(
                 f"{name} must match q ({tuple(q.shape)}, {q.dtype}, {q.device}), got "
                 f"{tuple(t.shape)}, {t.dtype}, {t.device}"
             )
-    if q.device.type == "cpu":
+    fake = build.is_fake(q)
+    if q.device.type == "cpu" and not fake:
         return causal_attention_bwd_plain(q, k, v, o, do, scale=scale, window=window)
     _check_kernel_shape(q, k, v)
     if not (o.is_contiguous() and do.is_contiguous()):
         raise ValueError("the flash_attention backward kernel takes contiguous o and do")
-    check_alignment(q, k, v, o, do)
     b, s, h, hd = q.shape
     kv = k.shape[2]
-    kernel = _bwd_kernel()
-    items, splits, slots = _dkdv_plan(b, s, h, kv, hd, int(window), q.device)
     rows = bwd_tile_rows(hd)
+    _, slots = _dkdv_items(b, s, h, kv, hd, int(window))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stats = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device)   # lse, delta
     # One float32 (dk, dv) tile of partial sums per slot of a cut key tile.
     partial = torch.empty((max(slots, 1), 2, rows, hd), dtype=torch.float32, device=q.device)
+    if fake:
+        _fake_backward([q, k, v, o, do], [dq, dk, dv, stats, partial])
+        return dq, dk, dv
+    check_alignment(q, k, v, o, do)
+    kernel = _bwd_kernel()
+    items, splits = _dkdv_plan(b, s, h, kv, hd, int(window), q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = kernel(
@@ -408,7 +450,8 @@ def causal_attention(
     On CUDA tensors (contiguous, float32 or bfloat16, hd in ``HEAD_DIMS``,
     16-byte-aligned) this launches the kernel that
     ``route`` names on the current stream and raises if it cannot; on CPU
-    tensors it computes ``causal_attention_plain``.  When autograd records
+    tensors it computes ``causal_attention_plain``, and on fake tensors it
+    takes its fake form.  When autograd records
     (grad mode on and an input requiring grad) the call goes through
     ``_FlashAttention``, whose backward is ``causal_attention_bwd``.
     ``causal_attention.launches`` counts the launches of either forward

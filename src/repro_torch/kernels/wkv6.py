@@ -26,6 +26,13 @@ row sums of G_t * S_{t-1}) taken from the same products term by term.
 ``wkv6_bwd_plain`` is their plain version.  The JAX package differentiates ``models/rwkv.py::wkv_scan``
 with XLA instead; it has no backward kernel.  On CPU tensors ``wkv6``
 computes ``wkv6_plain``, which autograd differentiates.
+
+On fake tensors (a counted fake run of a step, ``roofline.counter``) the
+forward and the backward take their fake forms, through ``_WKV6`` as on the
+card: the checks and allocations of the CUDA path, the backward's
+checkpoints included, with ``fake_launch``'s op in place of the launch,
+counted at the plain versions' FLOPs.  Neither the kernels nor the plain
+versions run, and the ``launches`` counters stay as they are.
 """
 from __future__ import annotations
 
@@ -76,6 +83,7 @@ def wkv6_plain(
     r, a yardstick): ``out_t = r_t^T (S + diag(u) k_t v_t^T)``,
     ``S = diag(w_t) S + k_t v_t^T``.  Returns (out (B, T, H, hd), final
     state (B, H, hd, hd)) in that type."""
+    build.refuse_fake_cuda("wkv6", r, k, v, w, u, state)
     b, t_len, h, hd = r.shape
     ct = torch.float64 if r.dtype == torch.float64 else torch.float32
     if state is None:
@@ -115,6 +123,7 @@ def wkv6_bwd_plain(
     Computes in float32 (float64 for float64 inputs, a yardstick).  Returns
     (dr, dk, dv in r's dtype, dw in w's, du (H, hd) and d(state)
     (B, H, hd, hd) in the compute type)."""
+    build.refuse_fake_cuda("wkv6_bwd", r, k, v, w, u, state, dout, dfinal)
     b, t_len, h, hd = r.shape
     ct = torch.float64 if r.dtype == torch.float64 else torch.float32
     rc, kc, vc, wc, do = (a.to(ct) for a in (r, k, v, w, dout))
@@ -139,6 +148,23 @@ def wkv6_bwd_plain(
     dv = dv + (rc * uc * kc).sum(-1, keepdim=True) * do
     du = (rc * kc * vd).sum((0, 1))
     return dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw.to(w.dtype), du, g
+
+
+def _plain_flops(r_shape, *_) -> int:
+    """``wkv6_plain``'s count: a (hd) x (hd, hd) product per token, head
+    and sequence."""
+    b, t_len, h, hd = r_shape
+    return 2 * b * t_len * h * hd * hd
+
+
+def _plain_bwd_flops(r_shape, *_) -> int:
+    """``wkv6_bwd_plain``'s count: three such products per token (``G v``,
+    ``k^T G`` and ``S_{t-1} dout``)."""
+    return 3 * _plain_flops(r_shape)
+
+
+_fake_forward = build.fake_launch("wkv6", _plain_flops)
+_fake_backward = build.fake_launch("wkv6_bwd", _plain_bwd_flops)
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -208,14 +234,18 @@ def _ptr(a: torch.Tensor | None):
 
 
 def _forward(r, k, v, w, u, state) -> tuple[torch.Tensor, torch.Tensor]:
-    if r.device.type == "cpu":
+    fake = build.is_fake(r)
+    if r.device.type == "cpu" and not fake:
         return wkv6_plain(r, k, v, w, u, state)
     _check_kernel(r, k, v, w, u, state)
     b, t_len, h, hd = r.shape
-    check_alignment(route(r.dtype, hd), r, k, v, w)
-    kernel = _kernel()
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     final = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    if fake:
+        _fake_forward([r, k, v, w, u] + ([] if state is None else [state]), [out, final])
+        return out, final
+    check_alignment(route(r.dtype, hd), r, k, v, w)
+    kernel = _kernel()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = kernel(
@@ -249,8 +279,9 @@ def wkv6_bwd(
     float32 and contiguous; r, k, v, w, dout, state and dfinal starting on
     16-byte boundaries, or it raises ``ValueError``) this launches the
     ``wkv6_bwd`` kernels on the current stream and raises if it cannot; on
-    CPU tensors it computes ``wkv6_bwd_plain``.  ``wkv6_bwd.launches``
-    counts the calls that launched them.
+    CPU tensors it computes ``wkv6_bwd_plain``, and on fake tensors it takes
+    its fake form.  ``wkv6_bwd.launches`` counts the calls that launched
+    them.
     """
     build.refuse_dtensors("wkv6_bwd", r, k, v, w, u, state, dout, dfinal)
     _check(r, k, v, w, u, state)
@@ -262,16 +293,12 @@ def wkv6_bwd(
                                or dfinal.device != r.device):
         raise ValueError(f"dfinal must be float32 {(b, h, hd, hd)} on {r.device}, got "
                          f"{dfinal.dtype} {tuple(dfinal.shape)} on {dfinal.device}")
-    if r.device.type == "cpu":
+    fake = build.is_fake(r)
+    if r.device.type == "cpu" and not fake:
         return wkv6_bwd_plain(r, k, v, w, u, state, dout, dfinal)
     _check_kernel(r, k, v, w, u, state)
     if not (dout.is_contiguous() and (dfinal is None or dfinal.is_contiguous())):
         raise ValueError("the wkv6 backward kernel takes contiguous dout and dfinal")
-    for name, a in (("r", r), ("k", k), ("v", v), ("w", w), ("dout", dout), ("state", state), ("dfinal", dfinal)):
-        if a is not None and a.data_ptr() % 16:
-            raise ValueError(f"the wkv6 backward kernels take 16-byte-aligned operands; {name} starts at "
-                             f"{a.data_ptr():#x}")
-    kernel = _bwd_kernel()
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dw = torch.empty_like(w)
     n_chunks = -(-t_len // BWD_CHUNK)
@@ -280,6 +307,15 @@ def wkv6_bwd(
     # The checkpoints of S and of G, (B, H, chunks, hd, hd) each, then the
     # chunks' total decays (B, H, chunks, hd).
     ckpt = torch.empty(b * h * n_chunks * hd * (2 * hd + 1), dtype=torch.float32, device=r.device)
+    if fake:
+        inputs = [r, k, v, w, u, dout] + [a for a in (state, dfinal) if a is not None]
+        _fake_backward(inputs, [dr, dk, dv, dw, du_part, dstate, ckpt])
+        return dr, dk, dv, dw, du_part.sum((0, 2)), dstate
+    for name, a in (("r", r), ("k", k), ("v", v), ("w", w), ("dout", dout), ("state", state), ("dfinal", dfinal)):
+        if a is not None and a.data_ptr() % 16:
+            raise ValueError(f"the wkv6 backward kernels take 16-byte-aligned operands; {name} starts at "
+                             f"{a.data_ptr():#x}")
+    kernel = _bwd_kernel()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = kernel(
@@ -337,7 +373,8 @@ def wkv6(
     bfloat16; u and state float32; hd in ``HEAD_DIMS``; r, k, v, w
     16-byte-aligned on the chunk route) this launches the kernel that
     ``route`` names on the current stream and raises if it cannot; on CPU
-    tensors it computes ``wkv6_plain``.  When autograd records a CUDA call
+    tensors it computes ``wkv6_plain``, and on fake tensors it takes its
+    fake form.  When autograd records a CUDA or fake call
     (grad mode on and an input requiring grad) the call goes through
     ``_WKV6``, whose backward is ``wkv6_bwd``.  ``wkv6.launches`` counts the
     launches of either forward kernel.  A DTensor on the card raises
@@ -345,7 +382,7 @@ def wkv6(
     """
     build.refuse_dtensors("wkv6", r, k, v, w, u, state)
     _check(r, k, v, w, u, state)
-    if r.device.type == "cpu":
+    if r.device.type == "cpu" and not build.is_fake(r):
         return wkv6_plain(r, k, v, w, u, state)
     if torch.is_grad_enabled() and any(a.requires_grad for a in (r, k, v, w, u, state) if a is not None):
         return _WKV6.apply(r, k, v, w, u, state)

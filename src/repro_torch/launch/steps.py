@@ -9,11 +9,14 @@ microbatch per batch shard, remat with the arch's policy.
 
 The abstract arguments are fake tensors (``FakeTensorMode``), the
 counterpart of ``jax.eval_shape``: shapes and dtypes, no storage, so a
-full-size grok-1 or llama4 bundle allocates nothing.  All the fake tensors
-of one arch share one mode, which ``fake_mode`` returns; code that runs a
-bundle's ``fn`` on them enters it.  Token ids are ``TOKEN_DTYPE`` (int64,
-torch's index type) where the reference's are int32.  ``materialize``
-makes concrete arguments of the same shapes and dtypes.
+full-size grok-1 or llama4 bundle allocates nothing.  They are on the card
+for a ``DeviceMesh`` of type ``"cuda"`` and on the host for any other mesh
+(a ``"cpu"`` one, or a stand-in with ``.shape`` and ``.axis_names``).  All
+the fake tensors of one arch and device share one mode, which ``fake_mode``
+returns; code that runs a bundle's ``fn`` on them enters it.  Token ids
+are ``TOKEN_DTYPE`` (int64, torch's index type) where the reference's are
+int32.  ``materialize`` makes concrete arguments of the same shapes and
+dtypes.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Any, Callable
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.device import resolve_device
@@ -60,12 +64,28 @@ class StepBundle:
     train_config: TrainConfig | None = None
 
 
+def _fake_device(mesh) -> str:
+    """Where a bundle on ``mesh`` keeps its abstract arguments."""
+    return "cuda" if isinstance(mesh, DeviceMesh) and mesh.device_type == "cuda" else "cpu"
+
+
+def _on(tree: Any, device: str) -> Any:
+    """Fake tensors of ``tree``'s shapes and dtypes on ``device``, made
+    afresh (a fake tensor cannot be moved to a device that the running
+    torch was built without, as a host build lacks the card)."""
+    if device == "cpu":
+        return tree
+    return tree_unflatten(tree, [
+        torch.empty(t.shape, dtype=t.dtype, device=device) for _, t in leaves_with_paths(tree)
+    ])
+
+
 @functools.cache
-def _abstract_params(cfg: ArchConfig):
-    """The parameters of ``cfg`` as fake tensors on the host, in a mode of
-    their own that the arch's other abstract arguments share."""
+def _abstract_params(cfg: ArchConfig, device: str = "cpu"):
+    """The parameters of ``cfg`` as fake tensors on ``device``, in a mode
+    of their own that the arch's other abstract arguments share."""
     with FakeTensorMode():
-        return init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        return _on(init_params(cfg, torch.Generator().manual_seed(0), device="cpu"), device)
 
 
 def fake_mode(tree: Any) -> FakeTensorMode:
@@ -76,11 +96,11 @@ def fake_mode(tree: Any) -> FakeTensorMode:
     raise ValueError("no fake tensor in the tree")
 
 
-def _abstract(mode: FakeTensorMode, specs: Any) -> Any:
-    """Fake host tensors of ``specs``' shapes and dtypes (meta tensors)."""
+def _abstract(mode: FakeTensorMode, specs: Any, device: str) -> Any:
+    """Fake tensors of ``specs``' shapes and dtypes on ``device``."""
     with mode:
         return tree_unflatten(specs, [
-            torch.empty(s.shape, dtype=s.dtype) for _, s in leaves_with_paths(specs)
+            torch.empty(s.shape, dtype=s.dtype, device=device) for _, s in leaves_with_paths(specs)
         ])
 
 
@@ -111,11 +131,12 @@ def build_train(cfg: ArchConfig, shape: InputShape, mesh) -> StepBundle:
     tcfg = train_config_for(cfg, shape, mesh)
     step = make_train_step(cfg, tcfg)
 
-    params_sds = _abstract_params(cfg)
+    device = _fake_device(mesh)
+    params_sds = _abstract_params(cfg, device)
     mode = fake_mode(params_sds)
     with mode:
         opt_sds = adamw_init(params_sds, tcfg.optimizer)
-    batch_sds = _abstract(mode, train_input_specs(cfg, shape.global_batch, shape.seq_len))
+    batch_sds = _abstract(mode, train_input_specs(cfg, shape.global_batch, shape.seq_len), device)
 
     p_shard = shd.param_shardings(cfg, mesh, params_sds)
     o_shard = shd.opt_state_shardings(cfg, mesh, opt_sds)
@@ -137,17 +158,18 @@ def build_train(cfg: ArchConfig, shape: InputShape, mesh) -> StepBundle:
 
 
 def build_prefill(cfg: ArchConfig, shape: InputShape, mesh) -> StepBundle:
-    params_sds = _abstract_params(cfg)
+    device = _fake_device(mesh)
+    params_sds = _abstract_params(cfg, device)
     mode = fake_mode(params_sds)
     specs = train_input_specs(cfg, shape.global_batch, shape.seq_len)
     specs.pop("labels")
-    batch_sds = _abstract(mode, specs)
+    batch_sds = _abstract(mode, specs, device)
 
     def fn(params, batch):
         return prefill_step(cfg, params, batch, max_len=shape.seq_len)
 
     with mode:
-        caches_sds = init_decode_caches(cfg, shape.global_batch, shape.seq_len, device="cpu")
+        caches_sds = _on(init_decode_caches(cfg, shape.global_batch, shape.seq_len, device="cpu"), device)
     p_shard = shd.param_shardings(cfg, mesh, params_sds)
     b_shard = shd.batch_shardings(cfg, mesh, batch_sds)
     c_shard = shd.cache_shardings(cfg, mesh, caches_sds)
@@ -170,12 +192,13 @@ def build_prefill(cfg: ArchConfig, shape: InputShape, mesh) -> StepBundle:
 
 
 def build_decode(cfg: ArchConfig, shape: InputShape, mesh) -> StepBundle:
-    params_sds = _abstract_params(cfg)
+    device = _fake_device(mesh)
+    params_sds = _abstract_params(cfg, device)
     mode = fake_mode(params_sds)
     with mode:
-        caches_sds = init_decode_caches(cfg, shape.global_batch, shape.seq_len, device="cpu")
-        len_sds = torch.empty((), dtype=torch.int32)
-    tok_sds = _abstract(mode, {"tokens": decode_token_specs(cfg, shape.global_batch)})["tokens"]
+        caches_sds = _on(init_decode_caches(cfg, shape.global_batch, shape.seq_len, device="cpu"), device)
+        len_sds = torch.empty((), dtype=torch.int32, device=device)
+    tok_sds = _abstract(mode, {"tokens": decode_token_specs(cfg, shape.global_batch)}, device)["tokens"]
 
     def fn(params, caches, tokens, cur_len):
         return decode_step(cfg, params, caches, tokens, int(cur_len))

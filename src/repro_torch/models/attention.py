@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import causal_attention
 from repro_torch.models.layers import NEG_INF, Params, apply_rope, normal
+from repro_torch.models.sharding_utils import _is_dtensor, even, head_placements, on_shards, unflatten
 
 
 def attn_init(
@@ -55,7 +56,6 @@ def attn_param_count(
 
 
 def _project_qkv(x, p, n_heads, n_kv_heads, head_dim):
-    b, s, _ = x.shape
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -64,9 +64,9 @@ def _project_qkv(x, p, n_heads, n_kv_heads, head_dim):
         k = k + p["bk"]
         v = v + p["bv"]
     return (
-        q.reshape(b, s, n_heads, head_dim),
-        k.reshape(b, s, n_kv_heads, head_dim),
-        v.reshape(b, s, n_kv_heads, head_dim),
+        unflatten(q, -1, (n_heads, head_dim)),
+        unflatten(k, -1, (n_kv_heads, head_dim)),
+        unflatten(v, -1, (n_kv_heads, head_dim)),
     )
 
 
@@ -89,18 +89,35 @@ def attn_forward(
     positions that rise by one per token.  ``return_kv=True`` also returns
     the post-RoPE (k, v) in (B, S, KV, hd) for the KV cache.
     """
-    b, s, _ = x.shape
+    s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)
     q, k_kv, v_kv = _project_qkv(x, p, n_heads, n_kv_heads, head_dim)
     q = apply_rope(q, positions, rope_theta)
     k_kv = apply_rope(k_kv, positions, rope_theta)
     scale = 1.0 / np.sqrt(head_dim)
-    out = causal_attention(q, k_kv, v_kv, scale=scale, window=window)
-    out = out.reshape(b, s, n_heads * head_dim) @ p["wo"]
+    out = _attention(q, k_kv, v_kv, scale, window) @ p["wo"]
     if return_kv:
         return out, k_kv, v_kv
     return out
+
+
+def _attention(q, k, v, scale: float, window: int) -> torch.Tensor:
+    """``causal_attention`` with its heads flattened, (B, S, H * hd); on
+    DTensors, on each rank's shards: the batch over the batch axes and the
+    heads over ``"model"`` where both head counts divide it, as the
+    reference's specs lay them out.  The heads are flattened on the shards,
+    so that the gradient is split back into heads there too (DTensor cannot
+    split a dimension sharded over more ranks than it has heads)."""
+
+    def attend(q, k, v):
+        b, s, h, hd = q.shape
+        return causal_attention(q, k, v, scale=scale, window=window).reshape(b, s, h * hd)
+
+    if not _is_dtensor(q):
+        return attend(q, k, v)
+    pq = head_placements(q, 0, 2, (q.shape[2], k.shape[2]))
+    return on_shards(attend, [q, k, v], [pq, pq, pq], [pq])
 
 
 def _gqa_cache_attention(
@@ -117,7 +134,7 @@ def _gqa_cache_attention(
     b, _, h, hd = q.shape
     kv = k_cache.shape[2]
     g = h // kv
-    qg = q.reshape(b, 1, kv, g, hd)
+    qg = unflatten(q, 2, (kv, g))
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k_cache.float()) * scale
     s = s.masked_fill(~mask, NEG_INF)                     # (B, KV, G, 1, S)
     m = s.amax(dim=-1, keepdim=True)
@@ -126,7 +143,7 @@ def _gqa_cache_attention(
     out = torch.einsum(
         "bkgqs,bskd->bqkgd", p_.to(v_cache.dtype).float(), v_cache.float()
     ) / denom.reshape(b, 1, kv, g, 1)
-    return out.reshape(b, 1, h, hd).to(q.dtype)
+    return even(out, (2, 3)).reshape(b, 1, h, hd).to(q.dtype)
 
 
 def attn_decode_step(

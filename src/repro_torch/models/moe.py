@@ -18,6 +18,12 @@ rounded to ``x.dtype`` (the reference's ``combine``), are summed per token
 in float32 with ``index_add_`` and rounded once, as the reference's einsum
 accumulates in float32.  Experts that no token reached cost nothing, so a
 decode step reads only the weights of the experts its tokens chose.
+
+On fake tensors (a counted dry run) there are no decisions to read: each
+expert then takes its whole capacity of ``G * C`` rows, the reference's
+static slots, and the experts run as batched products over their stack,
+so that the expert products and their memory are those of the reference's
+full-capacity dispatch.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import Params, normal
-from repro_torch.models.sharding_utils import constrain, replica
+from repro_torch.models.sharding_utils import constrain, is_fake, lifter, match, replica, whole_dim0
 
 
 def moe_init(
@@ -113,16 +119,6 @@ def _moe_groups(
     E = p["router"].shape[-1]
     gates, assigned, keep, _, probs = route(xg, p["router"], k, C)
 
-    # The kept pairs' count depends on the data, which DTensor cannot
-    # propagate: the pairs are found on keep's full value, then lifted back.
-    keep, lift = replica(keep)
-    rows, experts = keep.reshape(G * gs, E).nonzero(as_tuple=True)   # token-major
-    order = torch.argsort(experts, stable=True)
-    rows, experts = rows[order], experts[order]
-    counts = torch.bincount(experts, minlength=E).tolist()
-    rows, experts = lift(rows), lift(experts)
-    combine = gates.reshape(G * gs, E)[rows, experts].to(xg.dtype).float()
-
     w_gate, w_in, w_out = p["w_gate"], p["w_in"], p["w_out"]
     if weight_gather:
         # The reference's expert-parallel layout: expert weights keep E
@@ -131,8 +127,41 @@ def _moe_groups(
         w_gate = constrain(w_gate, "model", None, None)
         w_in = constrain(w_in, "model", None, None)
         w_out = constrain(w_out, "model", None, None)
-    xf = xg.reshape(G * gs, D)
+    # Tokens and gates are gathered whole before they are indexed by token
+    # (a no-op without a mesh): DTensor would otherwise leave each gather
+    # pending as a masked partial sum, which it cannot hold for several
+    # experts at once.
+    xf = constrain(xg.reshape(G * gs, D), None, None)
+    gates = constrain(gates.reshape(G * gs, E), None, None)
     y = torch.zeros_like(xf, dtype=torch.float32)
+    if is_fake(keep):
+        # Fake tensors (a counted dry run) hold no decisions: every expert
+        # takes its whole capacity, G * C rows, and the experts run as one
+        # batched product each, as the reference's static (G, E, C) slots
+        # and einsums do (an expert stack sharded by expert stays so).
+        lift = lifter(keep)
+        rows = lift(torch.zeros(E * G * C, dtype=torch.long, device=keep.device))
+        experts = lift(torch.arange(E, device=keep.device).repeat_interleave(G * C))
+        combine = gates[rows, experts].to(xg.dtype).float()
+        xe = xf[rows].reshape(E, G * C, D)
+        h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_in)
+        ye = torch.bmm(h, w_out).reshape(E * G * C, D)
+        y.index_add_(0, rows, match(ye.float() * combine[:, None], y))
+        return y.to(xg.dtype).reshape(G, gs, D), assigned.mean((0, 1)), probs.mean((0, 1))
+
+    # The kept pairs' count depends on the data, which DTensor cannot
+    # propagate: the pairs are found on keep's full value, then lifted back.
+    keep, lift = replica(keep)
+    rows, experts = keep.reshape(G * gs, E).nonzero(as_tuple=True)   # token-major
+    order = torch.argsort(experts, stable=True)
+    rows, experts = rows[order], experts[order]
+    counts = torch.bincount(experts, minlength=E).tolist()
+    rows, experts = lift(rows), lift(experts)
+    combine = gates[rows, experts].to(xg.dtype).float()
+    # An expert stack sharded by expert is gathered once, whole in E, its
+    # other shards kept: picking expert e out of the shards would gather
+    # the stack again for every expert.
+    w_gate, w_in, w_out = (whole_dim0(w) for w in (w_gate, w_in, w_out))
     start = 0
     for e, n in enumerate(counts):
         if n == 0:
@@ -145,7 +174,7 @@ def _moe_groups(
         ye = h @ w_out[e]
         if weight_gather:
             ye = constrain(ye, "data", None)
-        y.index_add_(0, idx, ye.float() * combine[start : start + n, None])
+        y.index_add_(0, idx, match(ye.float() * combine[start : start + n, None], y))
         start += n
     return y.to(xg.dtype).reshape(G, gs, D), assigned.mean((0, 1)), probs.mean((0, 1))
 

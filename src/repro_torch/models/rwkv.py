@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
 from repro_torch.models.layers import Params, normal, rms_norm
+from repro_torch.models.sharding_utils import _is_dtensor, head_placements, like, on_shards, unflatten
 
 
 def rwkv_init(
@@ -83,14 +84,23 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 def _decays(xw: torch.Tensor, p: Params, n_heads: int, head_dim: int) -> torch.Tensor:
     """Data-dependent per-channel decay w_t in (0, 1), float32."""
     lora = torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
-    b, s, _ = lora.shape
-    w = p["w0"][None, None] + lora.reshape(b, s, n_heads, head_dim).float()
+    w = p["w0"][None, None] + unflatten(lora, -1, (n_heads, head_dim)).float()
     return torch.exp(-torch.exp(w))
 
 
 # The recurrence one token at a time: r, k, v, w (B, S, H, hd), u (H, hd),
 # state (B, H, hd, hd) -> (out float32, final state float32).
 wkv_scan = wkv6_plain
+
+
+def _wkv6(r, k, v, w, u, state):
+    """``wkv6``; on DTensors, on each rank's shards: the batch over the
+    batch axes and the heads over ``"model"`` where they divide it."""
+    if not _is_dtensor(r):
+        return wkv6(r, k, v, w, u, state)
+    pr = head_placements(r, 0, 2, (r.shape[2],))
+    pu, ps = like(pr, {2: 0}), like(pr, {0: 0, 2: 1})
+    return on_shards(wkv6, [r, k, v, w, u, state], [pr, pr, pr, pr, pu, ps], [pr, ps])
 
 
 def time_mix(
@@ -117,14 +127,14 @@ def time_mix(
     xw = x + (xs - x) * mu[3]
     xg = x + (xs - x) * mu[4]
 
-    r = (xr @ p["wr"]).reshape(b, s, n_heads, head_dim)
-    k = (xk @ p["wk"]).reshape(b, s, n_heads, head_dim)
-    v = (xv @ p["wv"]).reshape(b, s, n_heads, head_dim)
+    r = unflatten(xr @ p["wr"], -1, (n_heads, head_dim))
+    k = unflatten(xk @ p["wk"], -1, (n_heads, head_dim))
+    v = unflatten(xv @ p["wv"], -1, (n_heads, head_dim))
     g = F.silu(xg @ p["wg"])
     w = _decays(xw, p, n_heads, head_dim)
 
     if s > 1:
-        out, wkv_state = wkv6(r, k, v, w, p["u"], wkv_state)
+        out, wkv_state = _wkv6(r, k, v, w, p["u"], wkv_state)
     else:
         out, wkv_state = wkv_scan(r, k, v, w, p["u"], wkv_state)
     out = out.reshape(b, s, d).to(x.dtype)

@@ -36,6 +36,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -331,7 +332,11 @@ def forward_loss(
     if cfg.frontend == "vision":
         labels = torch.cat([labels.new_zeros((labels.shape[0], cfg.n_patches)), labels], dim=1)
     logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, labels[..., None])[..., 0]
+    # -logp at each label; nll_loss's backward writes into a gradient of
+    # logp's own layout, where gather's would make a new one (on DTensors
+    # a replicated one of the global shape).
+    b, s, v = logp.shape
+    nll = F.nll_loss(logp.reshape(b * s, v), labels.reshape(b * s), reduction="none").reshape(b, s)
     if loss_mask is not None:
         nll = nll * loss_mask
         denom = loss_mask.sum().clamp_min(1.0)
@@ -462,7 +467,8 @@ def prefill_step(
             return_kv=True, **_attn_kw(cfg),
         )
         size = max_len if is_global else min(cfg.window, max_len)
-        k_c = torch.zeros((b, size, cfg.n_kv_heads, hd), dtype=h.dtype, device=h.device)
+        # Of k_kv's layout on a mesh (a DTensor's placements), h's dtype.
+        k_c = k_kv.new_zeros((b, size, cfg.n_kv_heads, hd), dtype=h.dtype)
         v_c = torch.zeros_like(k_c)
         if is_global or s <= size:
             k_c[:, :s] = k_kv

@@ -1,35 +1,52 @@
-"""Cost of one step from its torch ops: the port's sibling of ``hlo_parse``.
+"""Cost and memory of one step from its torch ops, per rank: the port's
+sibling of ``hlo_parse`` and of XLA's ``memory_analysis``.
 
-torch produces no HLO, so a step bundle's ``fn`` runs once on its abstract
+torch produces no HLO, so a step bundle's ``fn`` runs once on abstract
 arguments under their ``FakeTensorMode`` (shapes and dtypes only: nothing
-is allocated and nothing runs on a device), with two dispatch modes
-listening:
+is allocated and nothing runs on a device), with one dispatch mode
+listening.  On a mesh of more than one rank the arguments are fake
+DTensors: each holds rank 0's shard under the bundle's ``in_placements``.
+The mode sees the ops that rank 0 executes, not the global ones: an op on
+DTensors is passed on (``NotImplemented``) to DTensor, whose local ops on
+the shards, redistributions and collectives come back through the mode;
+the ops that DTensor's sharding propagation runs once more at the global
+shapes, to learn an output's metadata, are work no rank does and are
+skipped.
 
-* FLOPs: ``torch.utils.flop_counter.FlopCounterMode``, which counts the
-  products (2 * M * N * K per matrix product; attention and convolutions
-  likewise) and nothing elementwise, as the parser counts dots alone.
+* FLOPs: ``torch.utils.flop_counter``'s formulas (2 * M * N * K per matrix
+  product; attention and convolutions likewise; the hand kernels' fake
+  forms at their plain versions' counts) and nothing elementwise, as the
+  parser counts dots alone.
 * Bytes: every op's tensor inputs read once and outputs written once;
-  views move no bytes.  Eager torch fuses nothing, so each op is charged as
-  the parser charges an unfused instruction.
+  views, queries (an op with no tensor output) and collectives move none.  Eager torch fuses nothing, so each op
+  is charged as the parser charges an unfused instruction.
 * Collectives: the result bytes of the functional collectives that DTensor
-  redistributions issue, by kind, and their count (none on a one-device
+  redistributions issue, by kind, and their count (none on a one-rank
   mesh).
+* Memory: the bytes of every storage live on rank 0, from the arguments'
+  shards on (the caller holds them) until each storage's last tensor is
+  freed; ``peak_bytes`` is the most at once during the call.
 
 The step runs once with every layer and microbatch in turn, so the counts
-need no loop multiplicities.  On fake host tensors the hand kernels' plain
-versions run: attention is counted over every (query, key) pair, masked
-ones included, as the reference's chunked attention computes them.  The
-record is the parser's own ``HloCosts``, which ``analyze_compiled`` reads.
+need no loop multiplicities.  The hand kernels take their fake forms
+(``kernels.build.fake_launch``) on fake tensors: their outputs and
+workspaces, no launch and no plain version.  ``count_step``'s record is the
+parser's own ``HloCosts``, which ``analyze_compiled`` reads.
 """
 from __future__ import annotations
 
+import contextlib
+import math
+import sys
+import weakref
 
 import torch
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import flop_registry
 
 from repro_torch.roofline.hlo_parse import _COLLECTIVE_KINDS, HloCosts
-from repro_torch.training.tree import leaves_with_paths
+from repro_torch.training.tree import leaves_with_paths, tree_unflatten
 
 # Functional collectives (``torch.ops._c10d_functional``) by the HLO kind
 # the parser files them under.
@@ -41,54 +58,229 @@ _COLLECTIVES = {
 }
 
 
+def _dtensor_type():
+    mod = sys.modules.get("torch.distributed.tensor")
+    return None if mod is None else mod.DTensor
+
+
+def _local(t):
+    """A tensor as rank 0 holds it: a DTensor's local shard, any other
+    tensor itself."""
+    dtensor = _dtensor_type()
+    return t._local_tensor if dtensor is not None and isinstance(t, dtensor) else t
+
+
+def _tensors(tree) -> list[torch.Tensor]:
+    return [_local(t) for _, t in leaves_with_paths(tree) if isinstance(t, torch.Tensor)]
+
+
 def _tensor_bytes(tree) -> int:
-    return sum(
-        t.numel() * t.element_size()
-        for _, t in leaves_with_paths(tree)
-        if isinstance(t, torch.Tensor)
-    )
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
 
 
-class _ByteCounter(TorchDispatchMode):
-    """Bytes read and written per op, and collective bytes by kind."""
+def _dtensor_internal() -> str | None:
+    """Whether the op now dispatched is DTensor's own work rather than a
+    rank's: ``"metadata"`` for an op that its sharding propagation runs
+    once more at the global shapes to learn an output's shape
+    (``ShardingPropagator._propagate_tensor_meta*``), ``"indices"`` for
+    the index arithmetic by which it sizes a strided shard
+    (``local_shard_size_and_offset``), which needs values; None
+    otherwise."""
+    frame = sys._getframe(2)
+    while frame is not None:
+        name = frame.f_code.co_name
+        if name.startswith("_propagate_tensor_meta"):
+            return "metadata"
+        if name == "local_shard_size_and_offset":
+            return "indices"
+        frame = frame.f_back
+    return None
 
-    def __init__(self):
+
+class _Counter(TorchDispatchMode):
+    """FLOPs, bytes, collectives and live storage bytes of the ops rank 0
+    executes."""
+
+    def __init__(self, sharded: bool):
         super().__init__()
+        self.sharded = sharded
+        self.flops = 0
         self.bytes = 0
         self.collective_bytes = {k: 0.0 for k in _COLLECTIVE_KINDS}
         self.collective_ops = {k: 0 for k in _COLLECTIVE_KINDS}
+        self.live = 0
+        self.peak = 0
+        self._storages: dict[int, int] = {}
+
+    def hold(self, t: torch.Tensor) -> None:
+        """Count ``t``'s storage as live until its last tensor is freed."""
+        storage = t.untyped_storage()
+        key = storage._cdata
+        if key in self._storages:
+            return
+        n = storage.nbytes()
+        self._storages[key] = n
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(storage, self._free, key)
+
+    def _free(self, key: int) -> None:
+        self.live -= self._storages.pop(key)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        dtensor = _dtensor_type()
+        if dtensor is not None and any(issubclass(t, dtensor) for t in types):
+            return NotImplemented          # DTensor runs it; its local ops come back here
+        internal = _dtensor_internal() if self.sharded else None
+        if internal == "indices":
+            with unset_fake_temporarily():     # small index tensors, on real values
+                return func(*args, **kwargs)
         out = func(*args, **kwargs)
+        if internal == "metadata":
+            return out
         namespace, _, name = func.name().partition("::")
-        if namespace == "_c10d_functional" and name in _COLLECTIVES:
-            kind = _COLLECTIVES[name]
-            self.collective_bytes[kind] += _tensor_bytes(out)
-            self.collective_ops[kind] += 1
-        elif not func.is_view:
+        if namespace == "_c10d_functional":
+            if name in _COLLECTIVES:
+                kind = _COLLECTIVES[name]
+                self.collective_bytes[kind] += _tensor_bytes(out)
+                self.collective_ops[kind] += 1
+        elif not func.is_view and _tensors(out):     # a query (device, item) moves nothing
             self.bytes += _tensor_bytes(list(args)) + _tensor_bytes(dict(kwargs)) + _tensor_bytes(out)
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            self.flops += formula(*args, **kwargs, out_val=out)
+        for t in _tensors(out):
+            self.hold(t)
         return out
 
 
-def count_step(bundle) -> HloCosts:
-    """FLOPs, bytes and collective bytes of one call of ``bundle.fn`` on
-    ``bundle.args`` (a ``launch.steps`` bundle); decode's position is
-    given as 0."""
+def _clear_dtensor_caches() -> None:
+    """Empty DTensor's caches of sharding decisions and output metadata,
+    so that no decision from an earlier step (another arch's fake tensors,
+    another mesh) is reused for this one; each call of ``count`` starts
+    from the same state."""
+    from torch.distributed.tensor import DTensor, debug
+
+    clear = getattr(debug, "_clear_sharding_prop_cache", None)    # the C++ fast path's too, where it exists
+    if clear is not None:
+        clear()
+    propagator = DTensor._op_dispatcher.sharding_propagator
+    for name in ("propagate_op_sharding", "_propagate_tensor_meta_cached"):
+        cached = getattr(propagator, name, None)
+        if hasattr(cached, "cache_clear"):
+            cached.cache_clear()
+
+
+def _n_ranks(mesh) -> int:
+    from repro_torch.launch.mesh import mesh_view
+
+    return math.prod(mesh_view(mesh).shape.values())
+
+
+def _local_shape(shape: tuple[int, ...], mesh, placements) -> tuple[int, ...]:
+    """Rank 0's shard of a tensor of ``shape``: each ``Shard(d)`` cuts
+    dimension d into that mesh dimension's size of chunks, in mesh order,
+    and rank 0 keeps the first (``torch.chunk``'s split)."""
+    local = list(shape)
+    for size, place in zip(mesh.shape, placements):
+        if place.is_shard():
+            local[place.dim] = -(-local[place.dim] // size)
+    return tuple(local)
+
+
+def placed_args(bundle) -> tuple:
+    """The bundle's abstract arguments as rank 0 holds them: on a mesh of
+    one rank the fake tensors themselves; otherwise fake DTensors on the
+    bundle's ``DeviceMesh`` under ``in_placements``, each holding a fake
+    tensor of rank 0's shard."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch.sharding import _spec_leaves
     from repro_torch.launch.steps import fake_mode
 
-    args = bundle.args
-    if bundle.shape.kind == "decode":
-        args = (*args[:3], 0)
-    flops = FlopCounterMode(display=False)
-    nbytes = _ByteCounter()
-    with fake_mode(bundle.args), flops, nbytes:
-        bundle.fn(*args)
-    coll = nbytes.collective_bytes
-    return HloCosts(
-        flops=float(flops.get_total_flops()),
-        bytes_accessed=float(nbytes.bytes),
+    mesh = bundle.mesh
+    if _n_ranks(mesh) == 1:
+        return bundle.args
+    out = []
+    with fake_mode(bundle.args):
+        for arg, places in zip(bundle.args, bundle.in_placements):
+            flat = leaves_with_paths(arg)
+            pls = [p for _, p in _spec_leaves(places)]
+            if len(pls) != len(flat):
+                raise ValueError(f"{len(flat)} tensors but {len(pls)} placements")
+            leaves = []
+            for (_, t), pl in zip(flat, pls):
+                # A shard over a mesh dimension of one rank is that rank's
+                # whole tensor: replicated, which DTensor propagates with
+                # fewer detours.
+                pl = [Replicate() if n == 1 else p for n, p in zip(mesh.shape, pl)]
+                local = torch.empty(_local_shape(t.shape, mesh, pl), dtype=t.dtype, device=t.device)
+                leaves.append(DTensor.from_local(local, mesh, pl, run_check=False,
+                                                 shape=t.shape, stride=t.stride()))
+            out.append(tree_unflatten(arg, leaves))
+    return tuple(out)
+
+
+def argument_bytes(bundle) -> int:
+    """The bytes of rank 0's shards of the bundle's arguments."""
+    return _tensor_bytes(placed_args(bundle))
+
+
+def count(bundle) -> tuple[HloCosts, dict]:
+    """One call of ``bundle.fn`` (a ``launch.steps`` bundle) on rank 0's
+    abstract arguments (``placed_args``; decode's position given as 0),
+    counted: its ``HloCosts`` and its memory record, bytes per rank:
+    ``argument_bytes`` (the arguments' shards, decode's position
+    included), ``output_bytes`` (the outputs' shards), ``peak_bytes`` (the
+    most live at once, arguments included) and ``temp_bytes`` (peak less
+    arguments)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.steps import fake_mode
+
+    placed = placed_args(bundle)
+    args = (*placed[:3], 0) if bundle.shape.kind == "decode" else placed
+    sharded = _n_ranks(bundle.mesh) > 1
+    counter = _Counter(sharded)
+    for t in _tensors(placed):
+        counter.hold(t)
+    arg_bytes = counter.live
+    with contextlib.ExitStack() as stack:
+        if sharded:
+            _clear_dtensor_caches()
+            # As the reference runs its step under ``with mesh:``: the
+            # model's ``constrain`` calls act, and plain tensors the step
+            # makes (zeros, positions) count as replicated.
+            stack.enter_context(bundle.mesh)
+            stack.enter_context(implicit_replication())
+        stack.enter_context(fake_mode(bundle.args))
+        stack.enter_context(counter)
+        out = bundle.fn(*args)
+    seen, out_bytes = set(), 0
+    for t in _tensors(out):
+        storage = t.untyped_storage()
+        if storage._cdata not in seen:
+            seen.add(storage._cdata)
+            out_bytes += storage.nbytes()
+    coll = counter.collective_bytes
+    costs = HloCosts(
+        flops=float(counter.flops),
+        bytes_accessed=float(counter.bytes),
         collective_bytes={**coll, "total": sum(coll.values())},
-        collective_ops=nbytes.collective_ops,
+        collective_ops=counter.collective_ops,
         trip_counted_whiles=0,
     )
+    memory = {
+        "argument_bytes": arg_bytes,
+        "output_bytes": out_bytes,
+        "temp_bytes": counter.peak - arg_bytes,
+        "peak_bytes": counter.peak,
+    }
+    return costs, memory
+
+
+def count_step(bundle) -> HloCosts:
+    """FLOPs, bytes and collective bytes that rank 0 executes in one call
+    of ``bundle.fn``."""
+    return count(bundle)[0]

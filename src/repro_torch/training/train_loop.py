@@ -21,6 +21,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.sharding_utils import split_rows
 from repro_torch.models.transformer import forward_loss
 from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
 from repro_torch.training.tree import leaves_with_paths, tree_unflatten
@@ -37,12 +38,14 @@ class TrainConfig:
 
 def _split_micro(batch: dict[str, torch.Tensor], n: int) -> list[dict[str, torch.Tensor]]:
     """The batch as ``n`` consecutive slices along its leading axis, as the
-    reference's reshape to (n, B / n, ...) cuts it."""
+    reference's reshape to (n, B / n, ...) cuts it.  A batch of DTensors
+    sharded along that axis is cut shard by shard (``split_rows``), so
+    that each microbatch stays sharded as the batch is."""
     sizes = {a.shape[0] for a in batch.values()}
     if len(sizes) != 1 or next(iter(sizes)) % n:
         raise ValueError(f"a batch of leading sizes {sorted(sizes)} does not split into {n} microbatches")
-    m = next(iter(sizes)) // n
-    return [{k: a[i * m:(i + 1) * m] for k, a in batch.items()} for i in range(n)]
+    parts = {k: split_rows(a, n) for k, a in batch.items()}
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
 
 
 def make_train_step(

@@ -7,7 +7,9 @@ here for every branch of the report.  The hardware constants copied from
 ``hw/specs.py`` equal the reference's.  The port's counter, which stands in
 for XLA's cost analysis, is held to an independent count of a reduced
 prefill bundle's products, and ``analyze_compiled`` to the reference's
-output keys.
+output keys.  On fake meshes the counter counts what rank 0 executes: a
+sharded product's local shard, half the FLOPs where the batch splits in
+two; on one rank its FLOPs are ``FlopCounterMode``'s.
 """
 import dataclasses
 import math
@@ -15,6 +17,8 @@ import textwrap
 from types import SimpleNamespace
 
 import pytest
+import torch
+import torch.distributed as dist
 
 from repro.configs import ARCHS as REF_ARCHS
 from repro.configs import INPUT_SHAPES as REF_SHAPES
@@ -200,3 +204,110 @@ def test_analyze_compiled_has_the_references_keys():
     tpu = analysis.analyze_compiled(cfg, shape, ONE, costs, chip=specs.TPU_V5E)["roofline"]
     assert tpu["compute_s"] == costs.flops / specs.TPU_V5E.peak_flops_bf16
     assert math.isfinite(ro["useful_flops_ratio"]) and ro["bottleneck"] in ("compute", "memory", "collective")
+
+
+# --------------------------------------------------------------------------
+# Per-rank counts on fake meshes
+# --------------------------------------------------------------------------
+@pytest.fixture
+def fake_group():
+    """A fake process group of the asked size (its collectives move
+    nothing), destroyed afterwards; none may be left over."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    started = []
+
+    def start(n):
+        assert not dist.is_initialized()
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+        started.append(n)
+
+    yield start
+    if started:
+        dist.destroy_process_group()
+    assert not dist.is_initialized()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _small(shape_name, **kw):
+    return dataclasses.replace(INPUT_SHAPES[shape_name], seq_len=32, global_batch=4, **kw)
+
+
+def test_a_sharded_product_counts_rank_zeros_shard(fake_group):
+    """(64, 32) @ (32, 16) with rows Shard(0) over 4 ranks: rank 0 computes
+    (16, 32) @ (32, 16), 16,384 FLOPs, where the DTensor-level op counts
+    65,536; its bytes are the shards', and the product needs no collective."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.roofline.counter import _Counter
+
+    fake_group(4)
+    mesh = init_device_mesh("cpu", (4,))
+    mode = FakeTensorMode()
+    with mode:
+        a = DTensor.from_local(torch.empty(16, 32), mesh, [Shard(0)], run_check=False,
+                               shape=torch.Size((64, 32)), stride=(32, 1))
+        b = DTensor.from_local(torch.empty(32, 16), mesh, [Replicate()], run_check=False)
+    counter = _Counter(sharded=True)
+    with mode, counter:
+        c = a @ b
+    assert c.shape == (64, 16) and c.placements == (Shard(0),)
+    assert counter.flops == 2 * 16 * 32 * 16 == 16_384
+    assert counter.bytes == 4 * (16 * 32 + 32 * 16 + 16 * 16)
+    assert sum(counter.collective_ops.values()) == 0
+
+
+@pytest.mark.parametrize("shape_name", ["prefill_32k", "train_4k", "decode_32k"])
+def test_counts_halve_when_the_batch_splits_over_two_ranks(fake_group, shape_name):
+    """Reduced qwen1.5-0.5b on a fake 2 x 1 ("data", "model") mesh: every
+    product's batch is halved and nothing else changes, so rank 0 counts
+    exactly half the one-rank FLOPs."""
+    from repro_torch.launch.dryrun import dryrun_mesh
+
+    cfg, shape = ARCHS["qwen1.5-0.5b"].reduced(), _small(shape_name)
+    one = count_step(steps.build_step(cfg, shape, ONE))
+    fake_group(2)
+    two = count_step(steps.build_step(cfg, shape, dryrun_mesh((2, 1), ("data", "model"))))
+    assert two.flops * 2 == one.flops
+
+
+@pytest.mark.parametrize("shape_name", ["prefill_32k", "train_4k"])
+def test_counts_on_a_model_axis_of_two(fake_group, shape_name):
+    """On a fake 1 x 2 mesh the heads and the MLP's columns split and the
+    norms, embeddings and loss stay whole: rank 0 counts between half the
+    one-rank FLOPs and all of them, and its activations' all-reduces and
+    gathers move bytes."""
+    from repro_torch.launch.dryrun import dryrun_mesh
+
+    cfg, shape = ARCHS["qwen1.5-0.5b"].reduced(), _small(shape_name)
+    one = count_step(steps.build_step(cfg, shape, ONE))
+    fake_group(2)
+    two = count_step(steps.build_step(cfg, shape, dryrun_mesh((1, 2), ("data", "model"))))
+    assert one.flops / 2 <= two.flops <= one.flops
+    assert two.collective_bytes["total"] > 0
+
+
+@pytest.mark.parametrize("shape_name", ["prefill_32k", "train_4k", "decode_32k"])
+@pytest.mark.parametrize("name", list(ARCHS))
+def test_counter_flops_are_flop_counter_modes_on_one_rank(name, shape_name):
+    """On one rank the counter's FLOPs are ``FlopCounterMode``'s over the
+    same call (the hand kernels' fake forms included), for every reduced
+    arch and kind of step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    cfg = ARCHS[name].reduced()
+    bundle = steps.build_step(cfg, _small(shape_name), ONE)
+    args = (*bundle.args[:3], 0) if shape_name == "decode_32k" else bundle.args
+    flops = FlopCounterMode(display=False)
+    with steps.fake_mode(bundle.args), flops:
+        bundle.fn(*args)
+    assert count_step(bundle).flops == flops.get_total_flops() > 0

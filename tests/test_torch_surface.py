@@ -52,8 +52,8 @@ def test_reference_idiom_imports_without_jax():
     """``from repro_torch.core import Plan``, the CNN module (which imports
     ``serving.engine``), the simulators, the device stepper and evaluator,
     the controller and the fleet layers, the training package, the data
-    pipeline and the train launcher import in a fresh interpreter, with
-    neither JAX nor the reference package loaded."""
+    pipeline, the train launcher and the dry run import in a fresh
+    interpreter, with neither JAX nor the reference package loaded."""
     code = (
         "import sys\n"
         "from repro_torch.core import Plan, swapless_plan\n"
@@ -66,6 +66,7 @@ def test_reference_idiom_imports_without_jax():
         "from repro_torch.training import make_train_step, AdamWConfig\n"
         "from repro_torch.data import batches_for_arch\n"
         "import repro_torch.launch.train, repro_torch.training.checkpoint\n"
+        "import repro_torch.launch.dryrun, repro_torch.roofline.counter\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
     )

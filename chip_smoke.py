@@ -20,10 +20,13 @@ and prints no result line):
    bfloat16 at 16 and 32) must have ``HMMA``, and the CUDA-core kernel it
    replaced must be gone; the forward library's registers, spills (none
    allowed) and shared memory per route and head_dim (within 227 KB);
-   every instantiation of the backward's product kernels (stats, dK/dV,
-   dQ) must have ``HMMA`` and every dQ one ``DMMA``; the backward's
-   kernels must not spill, and each one's shared memory at every head_dim
-   and type must fit 227 KB; the wkv6 library likewise, with each of its
+   every split-TF32 instantiation of the backward's product kernels
+   (stats, dK/dV, dQ: float32 at every head_dim, bfloat16 at 16 and 32)
+   must have ``HMMA`` and every split-TF32 dQ one ``DMMA``; each wgmma
+   instantiation (``tc::``, bfloat16 at 64, 96, 128, 256) exactly its
+   count of ``HGMMA`` (``BWD_TC_HGMMA``); the backward's kernels must not
+   spill, and each one's shared memory at every head_dim and type must fit
+   227 KB; the wkv6 library likewise, with each of its
    four chunk-kernel instantiations (r, k, v and w in float32 or
    bfloat16) holding exactly its count of ``HMMA`` (``WKV_HMMA``) and no
    token-kernel instantiation at head_dim 64 left; wkv6_bwd's kernels
@@ -63,7 +66,9 @@ and prints no result line):
    at full width on 256 tokens, the sequential scan against the chunked
    one (also at strong decays);
 7a. flash_attention's backward kernel against ``causal_attention_bwd_plain``
-   on the card: the shapes of phase 3 plus GQA 8, float32 and bfloat16, and
+   on the card (each shape prints its route, ``bwd_route``: bfloat16 at hd
+   64, 96, 128 and 256 on wgmma, the rest on split TF32): the shapes of
+   phase 3 plus GQA 8, float32 and bfloat16, and
    the train paths' float32 shapes (qwen1.5-0.5b (2, 2048, 16, 16, 64);
    gemma3-1b (2, 2048, 4, 1, 256), window 512 and global); every dq, dk, dv
    row within ``GRAD_ROW_TOL``, a second call bitwise equal to the first,
@@ -158,7 +163,8 @@ and prints no result line):
     rwkv6-7b's train shape beside their plain versions and bounds; and
     flash_attention and its backward at the bf16 production train shapes
     beside their plain versions, SDPA's bf16 forward and backward and
-    their bounds at the bf16 rate.
+    their bounds at the bf16 rate (the backward also beside its wgmma
+    design's floor: eight products of the forward's size at that rate).
 
 Phases 8-12 run torch ops, not hand kernels (the reference jits them; none
 reaches a Pallas kernel): their times, launches per call and bounds go on
@@ -208,6 +214,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     TENSOR_CORE_HEAD_DIMS,
+    bwd_route,
     causal_attention,
     causal_attention_bwd,
     causal_attention_bwd_plain,
@@ -451,19 +458,24 @@ def phase_bwd_resources() -> dict:
     head_dim and type, from the library itself (within the 227 KB a block
     may take)."""
     res, spilled = printed_resources("flash_attention_bwd")
+    # Four kernels (stats, dK/dV, reduction, dQ) for each (type, head_dim),
+    # on the route bwd_route names.
     if len(res) != 4 * 2 * len(fa_mod.HEAD_DIMS) or spilled:
         raise AssertionError(f"flash_attention_bwd: {len(res)} kernels in the ptxas report, spills in {spilled}")
     fn = build.load("flash_attention_bwd").flash_attention_bwd_smem
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
-    smem = {f"{dt} hd {hd}": [fn(hd, int(dt == "bfloat16"), kern) for kern in range(3)]
-            for dt in ("float32", "bfloat16") for hd in fa_mod.HEAD_DIMS}
+    smem = {f"{str(dt)[6:]} hd {hd} {bwd_route(dt, hd)}": [fn(hd, int(dt == torch.bfloat16), kern) for kern in range(3)]
+            for dt in (torch.float32, torch.bfloat16) for hd in fa_mod.HEAD_DIMS}
     print("  dynamic shared memory (bytes: stats, dK/dV, dQ): " + "; ".join(f"{k} {v}" for k, v in smem.items()))
     if max(max(v) for v in smem.values()) > SMEM_PER_BLOCK or min(min(v) for v in smem.values()) <= 0:
         raise AssertionError(f"flash_attention_bwd's shared memory outside (0, {SMEM_PER_BLOCK}]: {smem}")
     short = {}
     for mangled, (regs, _) in res.items():
-        m = re.search(rf"({'|'.join(BWD_KERNEL_NAMES[::-1])})I(f|13__nv_bfloat16)Li(\d+)E", mangled)
-        short[f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bfloat16'},{m.group(3)}>" if m else mangled] = regs
+        m = re.search(rf"(2tc)?\d+({'|'.join(BWD_KERNEL_NAMES[::-1])})I(f|13__nv_bfloat16)?Li(\d+)E", mangled)
+        if m:
+            dt = {"f": "float,", "13__nv_bfloat16": "bfloat16,", None: ""}[m.group(3)]
+            mangled = f"{'tc::' if m.group(1) else ''}{m.group(2)}<{dt}{m.group(4)}>"
+        short[mangled] = regs
     return {"registers": short, "smem_bytes": smem}
 
 
@@ -838,6 +850,17 @@ FLASH_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # HGMMA per tensor-core flash_attention instantiation: hd / 16 steps of
 # q k^T, and kv_tile / 16 steps of P v times the hd / 64 (hd 96: 3) panels.
 FLASH_TC_HGMMA = {64: 4 + 4, 96: 6 + 4 * 3, 128: 8 + 4 * 2, 256: 16 + 2 * 4}
+# HGMMA per wgmma instantiation of the backward (tc::, bfloat16): hd / 16
+# steps of each score product (stats: q k^T; dK/dV: k q^T and v do^T; dQ:
+# q k^T and do v^T) and, per 16 rows of the reduction, one wgmma a panel of
+# hd (64 columns; 32 at hd 96) for each row-contracting product (dK/dV: p^T
+# do and ds^T q over 64 queries; dQ: ds k over 64 keys, 32 at hd 256).
+BWD_TC_HGMMA = {
+    "stats_kernel": {hd: hd // 16 for hd in TENSOR_CORE_HEAD_DIMS},
+    "dkdv_kernel": {hd: 2 * hd // 16 + 2 * 4 * (hd // (32 if hd == 96 else 64)) for hd in TENSOR_CORE_HEAD_DIMS},
+    "dq_kernel": {hd: 2 * hd // 16 + (2 if hd == 256 else 4) * (hd // (32 if hd == 96 else 64))
+                  for hd in TENSOR_CORE_HEAD_DIMS},
+}
 WKV_TOL = 2e-3                                             # TestWKV6
 # (B, S, H, KV, hd, window): TestFlashAttention's shapes, a property-sweep
 # sample, the first-token case, gemma3's GQA at hd 256, phi-3-vision's path
@@ -1502,7 +1525,8 @@ def check_flash_bwd(shapes, dtypes, against_f64: bool = False) -> float:
             ok = finite and bitwise and max(errs) <= tol
             fault = "" if fault_err is None else f" one-tile fault in dk={fault_err:.3e}"
             print(
-                f"  flash_attention_bwd {str(dtype)[6:]} (B,S,H,KV,hd,window)={shape}: row_rel_err "
+                f"  flash_attention_bwd {str(dtype)[6:]} (B,S,H,KV,hd,window)={shape} {bwd_route(dtype, shape[4])}: "
+                f"row_rel_err "
                 f"dq={errs[0]:.3e} dk={errs[1]:.3e} dv={errs[2]:.3e} tol={tol} max_abs_err={abs_err:.3e} "
                 f"finite={finite} bitwise_repeat={bitwise}{fault} {'ok' if ok else 'MISMATCH'}"
             )
@@ -1921,6 +1945,17 @@ def bwd_bound(key, dtype, ops_per_s=None) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bwd_floor(key, dtype) -> float:
+    """The wgmma route's own floor (ms): the eight products of the
+    forward's size that its kernels run (stats q k^T; dK/dV k q^T, v do^T,
+    p^T do, ds^T q; dQ q k^T, do v^T, ds k) over the unmasked pairs, at the
+    peak rate of ``dtype``."""
+    b, s, h, kv, hd, window = key
+    w = window if window > 0 else s
+    pairs = sum(min(i + 1, w) for i in range(s))
+    return 8 * 2.0 * hd * pairs * b * h / PEAK_OPS_PER_S[dtype] * 1e3
+
+
 def sdpa_bwd_call(q, k, v, do, scale, window):
     """The library yardstick: the backward of one
     F.scaled_dot_product_attention call on the same inputs (heads-first,
@@ -2328,8 +2363,8 @@ def _upcast(params):
 def phase_prod_times(calls: Counter) -> dict[str, list[dict]]:
     """flash_attention and its backward at each bf16 shape of the
     production train path: kernel (eager, graph), plain version, SDPA's
-    forward and backward, bounds at the bf16 rate (and the backward's at
-    the split-TF32 rate its products run at)."""
+    forward and backward, bounds at the bf16 rate (and the backward's
+    wgmma route beside its own floor, eight products at that rate)."""
     out = {"flash_attention": [], "flash_attention_bwd": []}
     steps = PROD_TIMED + 1
     print("times at the bf16 production train shapes (ms per call, CUDA events):")
@@ -2350,22 +2385,22 @@ def phase_prod_times(calls: Counter) -> dict[str, list[dict]]:
              "plain_ms": time_ms(lambda: causal_attention_plain(q, k, v, scale=scale, window=window), 3, warmup=1),
              "library_ms": time_ms(sdpa_call(q, k, v, scale, window), 20),
              "bound_ms": f_bound, "bound_by": f_by}
-        b = {"shape": list(key), "dtype": "bfloat16", "calls_a_step": n_bwd,
+        b = {"shape": list(key), "dtype": "bfloat16", "route": bwd_route(dtype, key[4]), "calls_a_step": n_bwd,
              "ms": time_ms(bwd, 10, warmup=2), "graph_ms": time_graph_ms(bwd, calls=5, replays=3),
              "plain_ms": time_ms(lambda: causal_attention_bwd_plain(q, k, v, o, do, scale=scale, window=window),
                                  3, warmup=1),
              "library_ms": time_ms(sdpa_bwd_call(q, k, v, do, scale, window), 10, warmup=2),
-             "bound_ms": b_bound, "bound_by": b_by,
-             "bound_split_tf32_ms": bwd_bound(key, dtype, SPLIT_TF32_OPS_PER_S)[0]}
+             "bound_ms": b_bound, "bound_by": b_by, "floor_ms": bwd_floor(key, dtype)}
         print(f"  (B,S,H,KV,hd,window)={key} bf16, {f['route']}, {n_fwd} calls a step: kernel={f['ms']:.6f} "
               f"graph={f['graph_ms']:.6f} plain={f['plain_ms']:.6f} sdpa={f['library_ms']:.6f} "
               f"bound={f_bound:.6f} ({f_by}, bf16) graph share={f_bound / f['graph_ms']:.4%} "
               f"kernel / sdpa={f['ms'] / f['library_ms']:.3f}")
-        print(f"    backward, {n_bwd} calls a step: kernel={b['ms']:.6f} graph={b['graph_ms']:.6f} "
+        print(f"    backward, {b['route']}, {n_bwd} calls a step: kernel={b['ms']:.6f} graph={b['graph_ms']:.6f} "
               f"plain={b['plain_ms']:.6f} sdpa_backward={b['library_ms']:.6f} bound={b_bound:.6f} ({b_by}, bf16) "
-              f"graph share={b_bound / b['graph_ms']:.4%}; split-TF32 bound={b['bound_split_tf32_ms']:.6f} "
-              f"graph share={b['bound_split_tf32_ms'] / b['graph_ms']:.4%}; "
-              f"kernel / sdpa_backward={b['ms'] / b['library_ms']:.3f}")
+              f"graph share={b_bound / b['graph_ms']:.4%}; eight-product floor={b['floor_ms']:.6f} "
+              f"graph share={b['floor_ms'] / b['graph_ms']:.4%}; "
+              f"kernel / sdpa_backward={b['ms'] / b['library_ms']:.3f} graph / sdpa_backward="
+              f"{b['graph_ms'] / b['library_ms']:.3f}")
         out["flash_attention"].append(f)
         out["flash_attention_bwd"].append(b)
         del q, k, v, o, do
@@ -2817,14 +2852,21 @@ def main() -> int:
     hmma = phase("tensor cores: HMMA in the wkv6 library", phase_tensor_cores, "wkv6", "HMMA",
                  None, {WKV_CHUNK_KERNEL: 4}, wkv_hmma_pins())
     wkv_resources = phase("wkv6: registers, spills, shared memory", phase_wkv6_resources)
-    # Every instantiation (2 types x 6 head_dims) of the backward's product
-    # kernels runs mma.sync; the reduction kernel has no product.
+    # Every split-TF32 instantiation (float32 at 6 head_dims, bfloat16 at 2)
+    # of the backward's product kernels runs mma.sync; the reduction kernel
+    # has no product; the wgmma ones (tc::) are pinned below.
+    n_bwd_mma = sum(bwd_route(dt, hd) == "tf32-mma" for dt in (torch.float32, torch.bfloat16)
+                    for hd in fa_mod.HEAD_DIMS)
     bwd_hmma = phase("tensor cores: HMMA in the flash_attention_bwd library", phase_tensor_cores,
                      "flash_attention_bwd", "HMMA", None,
-                     {rf"{len(n)}{n}I": 2 * len(fa_mod.HEAD_DIMS) for n in BWD_PRODUCT_KERNELS})
-    # dQ's do v^T runs on the FP64 tensor cores (mma.m8n8k4.f64).
+                     {rf"(?<!2tc){len(n)}{n}I": n_bwd_mma for n in BWD_PRODUCT_KERNELS})
+    # The split-TF32 dQ's do v^T runs on the FP64 tensor cores (mma.m8n8k4.f64).
     bwd_dmma = phase("tensor cores: DMMA in the flash_attention_bwd library", phase_tensor_cores,
-                     "flash_attention_bwd", "DMMA", None, {r"9dq_kernelI": 2 * len(fa_mod.HEAD_DIMS)})
+                     "flash_attention_bwd", "DMMA", None, {r"(?<!2tc)9dq_kernelI": n_bwd_mma})
+    # Each wgmma instantiation (bfloat16 at 64, 96, 128, 256) its count.
+    bwd_hgmma = phase("tensor cores: HGMMA in the flash_attention_bwd library", phase_tensor_cores,
+                      "flash_attention_bwd", "HGMMA",
+                      {rf"2tc{len(n)}{n}ILi{hd}E": c for n, by_hd in BWD_TC_HGMMA.items() for hd, c in by_hd.items()})
     bwd_resources = phase("flash_attention_bwd: registers, spills, shared memory", phase_bwd_resources)
     # Every instantiation (4 type pairs x 4 head_dims) of the backward's two
     # product kernels runs mma.sync, each its pinned count; the scan has none.
@@ -2970,7 +3012,10 @@ def main() -> int:
                                       if v["launches"][name]}
                 | {f"production train bf16 {n}": v["launches"][name] for n, v in prod.items()},
                 "shapes": sorted({str(key) for (k2, key, _dt) in train_calls if k2 == name}),
-                "sass_hmma": bwd_hmma, "sass_dmma": bwd_dmma, "registers": bwd_resources["registers"],
+                "sass_hmma": bwd_hmma, "sass_dmma": bwd_dmma, "sass_hgmma": bwd_hgmma,
+                "registers": bwd_resources["registers"], "smem_bytes": bwd_resources["smem_bytes"],
+                "routes": {f"{str(dt)[6:]} hd {key[4]}": bwd_route(dt, key[4])
+                           for (k2, key, dt) in (*train_calls, *prod_calls) if k2 == name},
                 "train_bf16": prod_times["flash_attention_bwd"]}
                if name == "flash_attention_bwd" else {}),
             **({"launches_by_path": {f"train {n}": v["launches"][name] for n, v in train.items()

@@ -22,12 +22,20 @@
 //
 // Layout.  q, out, do and dq are (B, S, H, hd); k, v, dk and dv are
 // (B, S, KV, hd); all contiguous, all float32 or all bfloat16, each
-// starting on a 16-byte boundary.  Arithmetic is float32 throughout; the
-// gradients are stored in the input type.  lse and delta are float32
-// (B, H, S) scratch that the caller allocates, and so is `partial`, one
-// float32 (dk, dv) tile per slot of the dK/dV work list.
+// starting on a 16-byte boundary.  Sums are float32; the gradients are
+// stored in the input type.  lse and delta are float32 (B, H, S) scratch
+// that the caller allocates, and so is `partial`, one float32 (dk, dv)
+// tile per slot of the dK/dV work list.
 //
-// Four kernels, launched in order on one stream:
+// Two routes, fixed by type and head size (kernels/flash_attention.py::
+// bwd_route mirrors this dispatch; neither gives way to the other):
+//
+//   bfloat16, hd in {64, 96, 128, 256} -> wgmma kernels (tc::), bfloat16
+//                                         operands, float32 accumulators
+//   every float32 shape; bfloat16, hd in {16, 32}
+//                                      -> split-TF32 mma.sync kernels
+//
+// Both have the same four kernels, launched in order on one stream:
 //  (a) stats_kernel: one block per (b*h, query tile), heaviest tiles first.
 //      It recomputes each row's log-sum-exp over its visible keys (the
 //      forward pass without p v; the forward kernel does not keep it) and
@@ -47,13 +55,14 @@
 // (b) and (d) both recompute p and ds; sharing them would need atomics on
 // dq or a (B, H, S, S) buffer.  No kernel uses atomics and every sum runs
 // in one fixed order, so two calls on the same inputs give the same bits.
+// The split-TF32 route is described first, then the wgmma route.
 //
 // Masking.  The forward's NEG_INF is finite (-1e30).  Here no masked score
 // ever reaches exp: p and ds are set to 0 for every (row, key) that
 // `visible` rejects, which covers the causal mask, the window, and rows and
 // keys past S (ragged S; those rows are staged as zeros and never stored).
 //
-// What bounds it.  Five products of the forward's size (q k^T and do v^T
+// What bounds it (split TF32).  Five products of the forward's size (q k^T and do v^T
 // recomputed, then ds k, ds^T q and p^T do), about 2.5 times the forward's
 // operations, plus q k^T once more in (a) and q k^T, do v^T once more in
 // (d).  At the training path's shapes (qwen1.5-0.5b: B = 2, S = 2048,
@@ -66,7 +75,7 @@
 // near 71 TFLOP/s, and this design's own floor at qwen's shape, with its
 // seven split products and one float64 product, is about 1 ms.
 //
-// Design.
+// Design (split TF32).
 //  - Products on the tensor cores: every product is mma.sync.m16n8k8 on
 //    TF32 operands with float32 accumulators.  An operand that is not exact
 //    in TF32 (float32 inputs; p and ds always) is split into a high and a
@@ -111,6 +120,54 @@
 //    for dk and dv alone, whether d streams through in panels or not, and
 //    (b) is at 255 registers with 32.  (a) and (d) take 64 query rows up
 //    to hd 128.
+//
+// The wgmma route (tc::).  bfloat16 inputs are exact bfloat16 operands for
+// the card's bfloat16 tensor cores (989 TFLOP/s, some 14 times split TF32
+// on mma.sync), so every product is one wgmma with float32 accumulators.
+// Its own floor is eight products of the forward's size: (a) q k^T; (b)
+// k q^T, v do^T, p^T do and ds^T q; (d) q k^T, do v^T and ds k: 0.139 ms
+// at qwen1.5-0.5b's production shape (1, 4096, 16, 16, 64) at 989 TFLOP/s.
+//  - Numerics: p and ds are rounded to bfloat16 before their products, as
+//    the forward rounds p before p v and as FlashAttention does; the
+//    scores and dp = do v^T take exact bfloat16 operands into float32
+//    accumulators, so in a peaked row dp - delta cancels as exactly as in
+//    the float32 plain version.  lse is kept in base 2 (scores times
+//    scale log2 e), so p = exp2(s - lse2).
+//  - Tiles: every q, do and key tile is 64 rows, wgmma's M; the dK/dV work
+//    list is built for 64-row tiles (bwd_tile_rows).  Tiles are stored in
+//    wgmma's swizzled panels (wgmma.cuh, shared with flash_attention.cu),
+//    so one stored tile is read K-major where hd is the reduction (s^T =
+//    k q^T, dp^T = v do^T, s = q k^T, dp = do v^T: both operands from
+//    shared memory) and MN-major, through the descriptor's transpose bit,
+//    where the tile's rows are (dv += p^T do, dk += ds^T q, dq += ds k):
+//    no transposed copy is ever made.
+//  - Fragments: p^T and ds^T (p and ds in (d)) are formed on the score
+//    accumulators, lse and delta read per column in (b), per row in (d),
+//    and rounded into wgmma's A-register layout: columns 16 kk .. 16 kk +
+//    15 of a 64 x N accumulator are registers 8 kk .. 8 kk + 7 of the A
+//    fragment of K step kk (as the forward's P), so the row-contracting
+//    products read A from registers and never touch shared memory.
+//  - (b) at hd 128 and 256: dk and dv at 64 key rows are hd floats a
+//    thread each in one warpgroup, and would spill beside s^T and dp^T.
+//    Two warpgroups share the key tile: warpgroup 0 computes s^T and p^T
+//    and owns dv, warpgroup 1 computes dp^T and owns dk, taking p^T
+//    (float32, 16 KB) from warpgroup 0 through shared memory behind a
+//    named barrier, each thread the element it holds of dp^T.  At hd 64
+//    and 96 one warpgroup holds both.
+//  - (d) at hd 256 walks 32-key tiles: the dq fragment alone is 128
+//    registers a thread.  Elsewhere 64.
+//  - Staging: a two-stage cp.async ring (q, do, lse2 and delta of the next
+//    step in (b); the next k, v tile in (a) and (d)), rows past S
+//    zero-filled, fence.proxy.async before wgmma reads what cp.async wrote.
+//    Deeper rings (3, 4 stages) and two query warpgroups sharing each k, v
+//    tile in (a) and (d) were tried and were no faster (PERF.md).
+//  - (c) spreads each cut tile's sums over several blocks: at hd 256 the
+//    work list cuts a few dozen key tiles, and one block each left most of
+//    the card idle.
+//  - What bounds it: (a), (b) and (d) each take exp of every visible score
+//    again, and (a) is a whole pass over q k^T for lse alone, which the
+//    forward could hand over; the products themselves run at a fraction
+//    of the tensor cores' rate (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -118,6 +175,7 @@
 #include <cstdint>
 
 #include "tf32.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -706,13 +764,15 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 
 // ---------------------------------------------------------------------------
 // (c) dK and dV of the key tiles that the work list cut into several items:
-// each tile's partials summed in slot order.
+// each tile's partials ([slot][dk, dv][R][HD] floats) summed in slot order;
+// both routes.  Block (x, y) takes the elements y, y + gridDim.y, ... (in
+// units of THREADS) of cut tile x: every element's sum runs in slot order
+// whatever the grid.
 // ---------------------------------------------------------------------------
-template <typename T, int HD>
+template <typename T, int HD, int R>
 __global__ void __launch_bounds__(THREADS)
 dkdv_reduce_kernel(const float* __restrict__ partial, const int* __restrict__ splits, T* __restrict__ dk,
               T* __restrict__ dv, int s_len, int h_kv, float scale) {
-  constexpr int R = KvTile<HD>::value;
   const int* sp = splits + static_cast<size_t>(blockIdx.x) * SPLIT_FIELDS;
   const int bkv = sp[0], kt = sp[1], first = sp[2], n = sp[3];
   const int b = bkv / h_kv;
@@ -720,7 +780,8 @@ dkdv_reduce_kernel(const float* __restrict__ partial, const int* __restrict__ sp
   const size_t kv_stride = static_cast<size_t>(h_kv) * HD;
   const size_t kv_off = static_cast<size_t>(b) * s_len * kv_stride + static_cast<size_t>(hk) * HD;
   const float* part = partial + static_cast<size_t>(first) * 2 * R * HD;
-  for (int e = static_cast<int>(threadIdx.x); e < 2 * R * HD; e += THREADS) {
+  for (int e = static_cast<int>(blockIdx.y * THREADS + threadIdx.x); e < 2 * R * HD;
+       e += THREADS * static_cast<int>(gridDim.y)) {
     float sum = 0.0f;
     for (int p = 0; p < n; ++p) sum += part[static_cast<size_t>(p) * 2 * R * HD + e];
     const int which = e / (R * HD);
@@ -911,8 +972,8 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   if (err != cudaSuccess) return static_cast<int>(err);
 
   if (w.n_splits > 0) {
-    dkdv_reduce_kernel<T, HD><<<w.n_splits, THREADS, 0, stream>>>(w.partial, w.splits, static_cast<T*>(dk),
-                                                             static_cast<T*>(dv), s, kv, scale);
+    dkdv_reduce_kernel<T, HD, KvTile<HD>::value><<<w.n_splits, THREADS, 0, stream>>>(
+        w.partial, w.splits, static_cast<T*>(dk), static_cast<T*>(dv), s, kv, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -925,21 +986,6 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-             void* dq, void* dk, void* dv, float* lse, float* delta, const Work& w, int b, int s, int h,
-             int kv, int hd, float scale, int window, cudaStream_t st) {
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, dout, dq, dk, dv, lse, delta, w, b, s, h, kv, scale, window, st);
-    case 32: return launch<T, 32>(q, k, v, o, dout, dq, dk, dv, lse, delta, w, b, s, h, kv, scale, window, st);
-    case 64: return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, delta, w, b, s, h, kv, scale, window, st);
-    case 96: return launch<T, 96>(q, k, v, o, dout, dq, dk, dv, lse, delta, w, b, s, h, kv, scale, window, st);
-    case 128: return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, lse, delta, w, b, s, h, kv, scale, window, st);
-    case 256: return launch<T, 256>(q, k, v, o, dout, dq, dk, dv, lse, delta, w, b, s, h, kv, scale, window, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 template <typename T, int HD>
 int smem_of(int kernel) {
   switch (kernel) {
@@ -950,18 +996,614 @@ int smem_of(int kernel) {
   }
 }
 
-template <typename T>
-int smem_dispatch(int hd, int kernel) {
-  switch (hd) {
-    case 16: return smem_of<T, 16>(kernel);
-    case 32: return smem_of<T, 32>(kernel);
-    case 64: return smem_of<T, 64>(kernel);
-    case 96: return smem_of<T, 96>(kernel);
-    case 128: return smem_of<T, 128>(kernel);
-    case 256: return smem_of<T, 256>(kernel);
+// ---------------------------------------------------------------------------
+// wgmma route: bfloat16 at hd 64, 96, 128 and 256.  See the note at the top.
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using namespace wgmma;   // Panel, load_tile, smem_desc and the wgmma instructions
+
+constexpr int WG = 128;         // threads of a warpgroup
+constexpr int TILE_ROWS = 64;   // rows of every q, do tile and of the dK/dV kernel's key tiles: wgmma's M
+constexpr int NS = TILE_ROWS / 2;   // floats a thread holds of a 64 x 64 score fragment
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Warpgroups of the dK/dV kernel: from hd 128 one would hold dK and dV
+// (hd floats a thread) beside S^T and dP^T (32 each) and spill, so two
+// share the key tile, warpgroup 0 owning dV and 1 dK.
+template <int HD>
+constexpr int dkdv_groups() { return HD >= 128 ? 2 : 1; }
+
+// Keys per tile of the dQ kernel: N of q k^T and do v^T, K of ds k.  At hd
+// 256 the dQ fragment alone is 128 registers a thread; 32 keys keep s, dp
+// and ds beside it, as in the forward's tc::kv_tile.
+template <int HD>
+constexpr int dq_keys() { return HD == 256 ? 32 : 64; }
+
+// The first atom-aligned shared address of the dynamic shared memory.
+template <int HD>
+__device__ __forceinline__ uint32_t aligned_base(const unsigned char* smem) {
+  constexpr uint32_t A = Panel<HD>::ATOM;
+  return (static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + A - 1) & ~(A - 1);
+}
+
+// d (64 x N) = a b^T over HD, a (64 rows) and b (N rows) K-major tiles at
+// shared addresses `a`, `b`, into d from zero (the caller fences and
+// commits): HD / 16 wgmmas, each step's 32 bytes inside one panel row.
+template <int HD, int N>
+__device__ __forceinline__ void rows_by_rows(float (&d)[N / 2], uint32_t a, uint32_t b) {
+  using P = Panel<HD>;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t step = (kk % P::STEPS) * 32;
+    wgmma_ss<N>(d, smem_desc<P::MODE>(a + (kk / P::STEPS) * (TILE_ROWS * P::ROW) + step, 16, P::ATOM),
+                smem_desc<P::MODE>(b + (kk / P::STEPS) * (N * P::ROW) + step, 16, P::ATOM), kk > 0);
+  }
+}
+
+// acc (64 x HD, one fragment per panel) += x (64 x K, bfloat16 A fragments
+// in registers) times the K-row tile at `b`, read MN-major: one wgmma per
+// 16-row step and panel (the caller fences and commits).
+template <int HD, int K>
+__device__ __forceinline__ void rows_by_cols(float (&acc)[HD / Panel<HD>::COLS][Panel<HD>::COLS / 2],
+                                             const uint32_t (&x)[K / 16][4], uint32_t b) {
+  using P = Panel<HD>;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+#pragma unroll
+    for (int p = 0; p < HD / P::COLS; ++p)
+      wgmma_rs<P::COLS>(acc[p], x[kk], smem_desc<P::MODE>(b + p * (K * P::ROW) + kk * 16 * P::ROW, P::ATOM, P::ATOM));
+}
+
+// A fragment of 64 x N as wgmma's A registers for K = N: columns
+// 16 kk .. 16 kk + 15 are registers 8 kk .. 8 kk + 7, rounded to bfloat16.
+template <int N>
+__device__ __forceinline__ void to_a(const float (&x)[N / 2], uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[kk][j] = pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
+}
+
+// Stores a 64 x HD accumulator (one fragment per panel) times `mul`: rows
+// r0 + row to `out` (bfloat16, `stride` elements between rows; rows at or
+// past s_len skipped) or, when `part` is given, all 64 rows to that
+// [64][HD] float32 tile.
+template <int HD>
+__device__ __forceinline__ void store_rows(const float (&acc)[HD / Panel<HD>::COLS][Panel<HD>::COLS / 2],
+                                           float mul, bf16* out, size_t stride, int r0, int s_len,
+                                           float* part) {
+  using P = Panel<HD>;
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+  const int warp = static_cast<int>(threadIdx.x) % WG / 32;
+#pragma unroll
+  for (int p = 0; p < HD / P::COLS; ++p)
+#pragma unroll
+    for (int i = 0; i < P::COLS / 2; i += 2) {
+      const int row = 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+      const int col = p * P::COLS + 8 * (i / 4) + 2 * (lane % 4);
+      if (part != nullptr)
+        *reinterpret_cast<float2*>(part + row * HD + col) = make_float2(acc[p][i], acc[p][i + 1]);
+      else if (r0 + row < s_len)
+        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r0 + row) * stride + col) =
+            __floats2bfloat162_rn(acc[p][i] * mul, acc[p][i + 1] * mul);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// (a) Row statistics: lse2 = (m + log l) log2 e over the row's visible keys
+// (the scores' log-sum-exp in base 2, as the other kernels take exp2), and
+// delta = do . out.
+// ---------------------------------------------------------------------------
+template <int HD>
+struct StatsSmem {
+  static constexpr int BK = 64;
+  static constexpr int Q = TILE_ROWS * HD * 2;
+  static constexpr int K = BK * HD * 2;
+  static constexpr int BYTES = Q + 2 * K + Panel<HD>::ATOM;   // q, [2] k; + alignment slack
+};
+
+template <int HD>
+__global__ void __launch_bounds__(WG, 1)
+stats_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ o,
+             const bf16* __restrict__ dout, float* __restrict__ lse, float* __restrict__ delta,
+             int s_len, int h_q, int h_kv, float scale, int window) {
+  using M = StatsSmem<HD>;
+  constexpr int BM = TILE_ROWS, BK = M::BK;
+  static_assert(M::BYTES <= SMEM_LIMIT, "tc::stats_kernel's tiles exceed shared memory");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_s = aligned_base<HD>(smem_raw);
+  const uint32_t ring = q_s + M::Q;
+
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+  const int warp = static_cast<int>(threadIdx.x) / 32;
+  const int q0 = (static_cast<int>(gridDim.x) - 1 - static_cast<int>(blockIdx.x)) * BM;  // heaviest first
+  const int b = blockIdx.y / h_q;
+  const int h = blockIdx.y % h_q;
+  const int hk = h / (h_q / h_kv);
+  const size_t q_stride = static_cast<size_t>(h_q) * HD;
+  const size_t kv_stride = static_cast<size_t>(h_kv) * HD;
+  const size_t q_off = static_cast<size_t>(b) * s_len * q_stride + static_cast<size_t>(h) * HD;
+  const bf16* kb = k + static_cast<size_t>(b) * s_len * kv_stride + static_cast<size_t>(hk) * HD;
+
+  const int k_end = min(q0 + BM, s_len);
+  const int k_begin = window > 0 ? (max(0, q0 - window + 1) / BK) * BK : 0;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+
+  load_tile<HD, BM, WG>(q_s, q + q_off, q_stride, q0, s_len);
+  load_tile<HD, BK, WG>(ring, kb, kv_stride, k_begin, s_len);
+  cp_async_commit();
+
+  const int qp0 = q0 + 16 * warp + lane / 4;   // this thread's rows: qp0 and qp0 + 8
+  const int col = 2 * (lane % 4);
+  const float scale2 = scale * LOG2E;
+  float m[2] = {NEG_INF, NEG_INF};   // running max of the rows (base 2), shared by the quad
+  float l[2] = {0.0f, 0.0f};         // this thread's part of their sums
+  float sc[BK / 2];
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_begin + t * BK;
+    if (t + 1 < n_tiles) load_tile<HD, BK, WG>(ring + ((t + 1) & 1) * M::K, kb, kv_stride, k0 + BK, s_len);
+    cp_async_commit();   // empty on the last tile, so that one group stays behind
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();     // q and this tile's k have landed, from every thread
+
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.0f;
+    wgmma_fence();
+    rows_by_rows<HD, BK>(sc, q_s, ring + (t & 1) * M::K);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    const bool need_mask = !all_visible(q0, BM, k0, BK, s_len, window);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int i = 2 * e; i < BK / 2; i += 4)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float x = sc[i + c] * scale2;
+          if (need_mask && !visible(qp0 + 8 * e, k0 + 8 * (i / 4) + col + c, s_len, window)) x = NEG_INF;
+          sc[i + c] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[e], mx);
+      float sum = 0.0f;
+#pragma unroll
+      for (int i = 2 * e; i < BK / 2; i += 4) sum += exp2f(sc[i] - m_new) + exp2f(sc[i + 1] - m_new);
+      // A row whose tiles so far were all masked has m = NEG_INF and sums
+      // exp2(0) = 1 per key; its first real score makes this factor 0.
+      l[e] = l[e] * exp2f(m[e] - m_new) + sum;
+      m[e] = m_new;
+    }
+    __syncthreads();   // this k stage is consumed
+  }
+
+  float* lse_b = lse + static_cast<size_t>(blockIdx.y) * s_len;
+  float* delta_b = delta + static_cast<size_t>(blockIdx.y) * s_len;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 1);
+    l[e] += __shfl_xor_sync(0xffffffffu, l[e], 2);
+    // Every row sees its own key, so l >= 1 here.
+    if (lane % 4 == 0 && qp0 + 8 * e < s_len) lse_b[qp0 + 8 * e] = m[e] + log2f(l[e]);
+  }
+  for (int r = warp; r < BM; r += WG / 32) {
+    const int qp = q0 + r;
+    if (qp >= s_len) continue;
+    const size_t at = q_off + static_cast<size_t>(qp) * q_stride;
+    float dot = 0.0f;
+    for (int d = 2 * lane; d < HD; d += 64) {
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + at + d));
+      const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + at + d));
+      dot = fmaf(a.x, c.x, fmaf(a.y, c.y, dot));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    if (lane == 0) delta_b[qp] = dot;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// (b) dK and dV of one work item: a run of (query tile, query head) steps of
+// one key tile, summed over the query heads of its group.
+// ---------------------------------------------------------------------------
+template <int HD>
+struct DkdvSmem {
+  static constexpr int G = dkdv_groups<HD>();
+  static constexpr int THREADS = G * WG;
+  static constexpr int TILE = TILE_ROWS * HD * 2;       // bytes of a k, v, q or do tile
+  static constexpr int KS = 0;                          // k
+  static constexpr int VS = TILE;                       // v
+  static constexpr int RING = 2 * TILE;                 // [2] stages of q, do
+  static constexpr int STATS = RING + 4 * TILE;         // [2] stages of lse2, delta [64] floats
+  static constexpr int PX = STATS + 2 * 2 * TILE_ROWS * 4;   // p^T from warpgroup 0 to 1: [NS][WG] floats
+  static constexpr int BYTES = PX + (G > 1 ? NS * WG * 4 : 0) + Panel<HD>::ATOM;
+};
+
+// p^T = exp2(s^T scale2 - lse2) on a thread's fragment of s^T (rows: keys
+// k0 + row, columns: queries q0 + col of the step), 0 where the pair is
+// not visible; lse2 read per column.  Without `mask` the caller has found
+// every pair of the tiles visible.
+__device__ __forceinline__ void probs_t(float (&s)[NS], const float* lse_s, int q0, int k0, int s_len,
+                                        int window, float scale2, bool mask) {
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+  const int row = 16 * (static_cast<int>(threadIdx.x) % WG / 32) + lane / 4;
+#pragma unroll
+  for (int i = 0; i < NS; i += 2) {
+    const int c = 8 * (i / 4) + 2 * (lane % 4);
+    const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+    const int kp = k0 + row + 8 * ((i / 2) % 2);
+    float p0 = exp2f(s[i] * scale2 - l2.x);
+    float p1 = exp2f(s[i + 1] * scale2 - l2.y);
+    if (mask) {
+      if (!visible(q0 + c, kp, s_len, window)) p0 = 0.0f;
+      if (!visible(q0 + c + 1, kp, s_len, window)) p1 = 0.0f;
+    }
+    s[i] = p0;
+    s[i + 1] = p1;
+  }
+}
+
+// ds^T = p^T (dp^T - delta) on a thread's fragment, delta read per column;
+// p^T is 0 wherever the pair is not visible, and so is ds^T.
+__device__ __forceinline__ void grads_t(float (&dp)[NS], const float (&p)[NS], const float* delta_s) {
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+#pragma unroll
+  for (int i = 0; i < NS; i += 2) {
+    const float2 d = *reinterpret_cast<const float2*>(delta_s + 8 * (i / 4) + 2 * (lane % 4));
+    dp[i] = p[i] * (dp[i] - d.x);
+    dp[i + 1] = p[i + 1] * (dp[i + 1] - d.y);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(DkdvSmem<HD>::THREADS, 1)
+dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+            const bf16* __restrict__ dout, const float* __restrict__ lse,
+            const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+            float* __restrict__ partial, const int* __restrict__ items, int s_len, int h_q,
+            int h_kv, float scale, int window) {
+  using P = Panel<HD>;
+  using M = DkdvSmem<HD>;
+  constexpr int R = TILE_ROWS, G = M::G, NP = HD / P::COLS, NF = P::COLS / 2;
+  static_assert(M::BYTES <= SMEM_LIMIT, "tc::dkdv_kernel's tiles exceed shared memory");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = aligned_base<HD>(smem_raw);
+  unsigned char* smem = smem_raw + (base - static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)));
+  const uint32_t ks = base + M::KS, vs = base + M::VS;
+
+  const int tid = static_cast<int>(threadIdx.x);
+  const int wg = tid / WG;   // 0 when G == 1
+  const int* it = items + static_cast<size_t>(blockIdx.x) * ITEM_FIELDS;
+  const int bkv = it[0], kt = it[1], h0 = it[2], h1 = it[3], t0 = it[4], t1 = it[5], slot = it[6];
+  const int b = bkv / h_kv;
+  const int hk = bkv % h_kv;
+  const int group = h_q / h_kv;
+  const int k0 = kt * R;
+  const size_t q_stride = static_cast<size_t>(h_q) * HD;
+  const size_t kv_stride = static_cast<size_t>(h_kv) * HD;
+  const size_t kv_off = static_cast<size_t>(b) * s_len * kv_stride + static_cast<size_t>(hk) * HD;
+  const int nh = h1 - h0;
+  const int steps = (t1 - t0) * nh;
+  const float scale2 = scale * LOG2E;
+
+  // Step i of the item: query tile t0 + i / nh of head h0 + i % nh.
+  auto load_step = [&](int i, int stage) {
+    const int h = hk * group + h0 + i % nh;
+    const int q0 = (t0 + i / nh) * R;
+    const size_t q_off = static_cast<size_t>(b) * s_len * q_stride + static_cast<size_t>(h) * HD;
+    const size_t stat_off = (static_cast<size_t>(b) * h_q + h) * s_len;
+    const uint32_t st = base + M::RING + stage * 2 * M::TILE;
+    load_tile<HD, R, M::THREADS>(st, q + q_off, q_stride, q0, s_len);
+    load_tile<HD, R, M::THREADS>(st + M::TILE, dout + q_off, q_stride, q0, s_len);
+    if (tid < 2 * R) {   // lse2 then delta, zero past S
+      const int r = tid % R;
+      const bool in = q0 + r < s_len;
+      tf32::cp_async4(base + M::STATS + (stage * 2 * R + tid) * 4,
+                      (tid < R ? lse : delta) + stat_off + (in ? q0 + r : 0), in);
+    }
+  };
+
+  load_tile<HD, R, M::THREADS>(ks, k + kv_off, kv_stride, k0, s_len);
+  load_tile<HD, R, M::THREADS>(vs, v + kv_off, kv_stride, k0, s_len);
+  load_step(0, 0);
+  cp_async_commit();
+
+  // G == 1: acc[0] is dV and acc[1] dK; G == 2: acc[0] is warpgroup 0's dV
+  // or warpgroup 1's dK.
+  float acc[G == 1 ? 2 : 1][NP][NF];
+#pragma unroll
+  for (int a = 0; a < (G == 1 ? 2 : 1); ++a)
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int i = 0; i < NF; ++i) acc[a][p][i] = 0.0f;
+  float* px = reinterpret_cast<float*>(smem + M::PX) + tid % WG;   // p^T element i at px[i * WG]
+
+  for (int i = 0; i < steps; ++i) {
+    if (i + 1 < steps) load_step(i + 1, (i + 1) & 1);
+    cp_async_commit();
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();   // k, v and this step's stage have landed, from every thread
+    const uint32_t qs = base + M::RING + (i & 1) * 2 * M::TILE;
+    const uint32_t dos = qs + M::TILE;
+    const float* lse_s = reinterpret_cast<const float*>(smem + M::STATS) + (i & 1) * 2 * R;
+    const float* delta_s = lse_s + R;
+    const int q0 = (t0 + i / nh) * R;
+    const bool mask = !all_visible(q0, R, k0, R, s_len, window);
+
+    float s[NS], dp[NS];
+    uint32_t x[R / 16][4];
+    if constexpr (G == 1) {
+      // s^T = k q^T and dp^T = v do^T, then dV += p^T do, dK += ds^T q.
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[j] = dp[j] = 0.0f;
+      wgmma_fence();
+      rows_by_rows<HD, R>(s, ks, qs);
+      rows_by_rows<HD, R>(dp, vs, dos);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+      probs_t(s, lse_s, q0, k0, s_len, window, scale2, mask);
+      grads_t(dp, s, delta_s);
+      uint32_t y[R / 16][4];
+      to_a<R>(s, x);
+      to_a<R>(dp, y);
+      wgmma_fence();
+      rows_by_cols<HD, R>(acc[0], x, dos);
+      rows_by_cols<HD, R>(acc[1], y, qs);
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        fence_regs(acc[0][p]);
+        fence_regs(acc[1][p]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < R / 16; ++kk) {
+        fence_regs(x[kk]);
+        fence_regs(y[kk]);
+      }
+    } else if (wg == 0) {
+      // s^T = k q^T -> p^T, handed to warpgroup 1; dV += p^T do.
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[j] = 0.0f;
+      wgmma_fence();
+      rows_by_rows<HD, R>(s, ks, qs);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      probs_t(s, lse_s, q0, k0, s_len, window, scale2, mask);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) px[j * WG] = s[j];
+      asm volatile("bar.arrive 1, %0;\n" :: "n"(2 * WG) : "memory");
+      to_a<R>(s, x);
+      wgmma_fence();
+      rows_by_cols<HD, R>(acc[0], x, dos);
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_regs(acc[0][p]);
+#pragma unroll
+      for (int kk = 0; kk < R / 16; ++kk) fence_regs(x[kk]);
+    } else {
+      // dp^T = v do^T; with warpgroup 0's p^T, ds^T; dK += ds^T q.
+#pragma unroll
+      for (int j = 0; j < NS; ++j) dp[j] = 0.0f;
+      wgmma_fence();
+      rows_by_rows<HD, R>(dp, vs, dos);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dp);
+      asm volatile("bar.sync 1, %0;\n" :: "n"(2 * WG) : "memory");
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[j] = px[j * WG];
+      grads_t(dp, s, delta_s);
+      to_a<R>(dp, x);
+      wgmma_fence();
+      rows_by_cols<HD, R>(acc[0], x, qs);
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_regs(acc[0][p]);
+#pragma unroll
+      for (int kk = 0; kk < R / 16; ++kk) fence_regs(x[kk]);
+    }
+    __syncthreads();   // this stage and p^T are consumed
+  }
+
+  // dK is stored times scale; a cut key tile's items write float32
+  // partials [slot][dk, dv][64][HD] for dkdv_reduce_kernel.
+  float* part = slot >= 0 ? partial + static_cast<size_t>(slot) * 2 * R * HD : nullptr;
+  const bool is_dk = G == 2 && wg == 1;
+  store_rows<HD>(acc[0], is_dk ? scale : 1.0f, is_dk ? dk + kv_off : dv + kv_off, kv_stride, k0, s_len,
+                 part == nullptr ? nullptr : part + (is_dk ? 0 : R * HD));
+  if constexpr (G == 1)
+    store_rows<HD>(acc[1], scale, dk + kv_off, kv_stride, k0, s_len, part);
+}
+
+// ---------------------------------------------------------------------------
+// (d) dQ of one query tile of one head.
+// ---------------------------------------------------------------------------
+template <int HD>
+struct DqSmem {
+  static constexpr int BK = dq_keys<HD>();
+  static constexpr int Q = TILE_ROWS * HD * 2;
+  static constexpr int KV = BK * HD * 2;
+  static constexpr int RING = 2 * Q;                               // after q, do
+  static constexpr int BYTES = RING + 4 * KV + Panel<HD>::ATOM;    // [2] stages of k, v; + slack
+};
+
+template <int HD>
+__global__ void __launch_bounds__(WG, 1)
+dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+          const bf16* __restrict__ dout, const float* __restrict__ lse,
+          const float* __restrict__ delta, bf16* __restrict__ dq, int s_len, int h_q,
+          int h_kv, float scale, int window) {
+  using P = Panel<HD>;
+  using M = DqSmem<HD>;
+  constexpr int BM = TILE_ROWS, BK = M::BK, NP = HD / P::COLS, NF = P::COLS / 2;
+  static_assert(M::BYTES <= SMEM_LIMIT, "tc::dq_kernel's tiles exceed shared memory");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_s = aligned_base<HD>(smem_raw);
+  const uint32_t do_s = q_s + M::Q;
+  const uint32_t ring = q_s + M::RING;   // stage st: k at ring + 2 st KV, v at + KV
+
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+  const int warp = static_cast<int>(threadIdx.x) / 32;
+  const int q0 = (static_cast<int>(gridDim.x) - 1 - static_cast<int>(blockIdx.x)) * BM;  // heaviest first
+  const int b = blockIdx.y / h_q;
+  const int h = blockIdx.y % h_q;
+  const int hk = h / (h_q / h_kv);
+  const size_t q_stride = static_cast<size_t>(h_q) * HD;
+  const size_t kv_stride = static_cast<size_t>(h_kv) * HD;
+  const size_t q_off = static_cast<size_t>(b) * s_len * q_stride + static_cast<size_t>(h) * HD;
+  const size_t kv_off = static_cast<size_t>(b) * s_len * kv_stride + static_cast<size_t>(hk) * HD;
+
+  const int k_end = min(q0 + BM, s_len);
+  const int k_begin = window > 0 ? (max(0, q0 - window + 1) / BK) * BK : 0;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+  auto load_kv = [&](int t) {
+    const uint32_t st = ring + (t & 1) * 2 * M::KV;
+    load_tile<HD, BK, WG>(st, k + kv_off, kv_stride, k_begin + t * BK, s_len);
+    load_tile<HD, BK, WG>(st + M::KV, v + kv_off, kv_stride, k_begin + t * BK, s_len);
+  };
+
+  load_tile<HD, BM, WG>(q_s, q + q_off, q_stride, q0, s_len);
+  load_tile<HD, BM, WG>(do_s, dout + q_off, q_stride, q0, s_len);
+  load_kv(0);
+  cp_async_commit();
+
+  // This thread's rows qp0 and qp0 + 8, their lse2 and delta (0 past S).
+  const int qp0 = q0 + 16 * warp + lane / 4;
+  const int col = 2 * (lane % 4);
+  const float* lse_b = lse + static_cast<size_t>(blockIdx.y) * s_len;
+  const float* delta_b = delta + static_cast<size_t>(blockIdx.y) * s_len;
+  float lr[2], dr[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const bool in = qp0 + 8 * e < s_len;
+    lr[e] = in ? lse_b[qp0 + 8 * e] : 0.0f;
+    dr[e] = in ? delta_b[qp0 + 8 * e] : 0.0f;
+  }
+  const float scale2 = scale * LOG2E;
+
+  float acc[NP][NF];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < NF; ++i) acc[p][i] = 0.0f;
+  float s[BK / 2], dp[BK / 2];
+  uint32_t x[BK / 16][4];
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_begin + t * BK;
+    if (t + 1 < n_tiles) load_kv(t + 1);
+    cp_async_commit();
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();   // q, do and this tile's k, v have landed, from every thread
+    const uint32_t ks = ring + (t & 1) * 2 * M::KV;
+
+    // s = q k^T and dp = do v^T; ds = p (dp - delta), p = exp2(s scale2 - lse2).
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) s[j] = dp[j] = 0.0f;
+    wgmma_fence();
+    rows_by_rows<HD, BK>(s, q_s, ks);
+    rows_by_rows<HD, BK>(dp, do_s, ks + M::KV);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+    const bool mask = !all_visible(q0, BM, k0, BK, s_len, window);
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) {
+      const int e = (j / 2) % 2;
+      float p = exp2f(s[j] * scale2 - lr[e]);
+      if (mask && !visible(qp0 + 8 * e, k0 + 8 * (j / 4) + col + j % 2, s_len, window)) p = 0.0f;
+      dp[j] = p * (dp[j] - dr[e]);
+    }
+
+    // dq += ds k: k read MN-major, the tile's keys the reduction.
+    to_a<BK>(dp, x);
+    wgmma_fence();
+    rows_by_cols<HD, BK>(acc, x, ks);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) fence_regs(acc[p]);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) fence_regs(x[kk]);
+    __syncthreads();   // every warp is done with this stage before it is refilled
+  }
+  store_rows<HD>(acc, scale, dq + q_off, q_stride, q0, s_len, nullptr);
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+           void* dq, void* dk, void* dv, float* lse, float* delta, const Work& w, int b, int s, int h,
+           int kv, float scale, int window, cudaStream_t stream) {
+  using Ds = DkdvSmem<HD>;
+  static unsigned configured_stats = 0, configured_dkdv = 0, configured_dq = 0;
+  const auto* qt = static_cast<const bf16*>(q);
+  const auto* kt = static_cast<const bf16*>(k);
+  const auto* vt = static_cast<const bf16*>(v);
+  const auto* dot = static_cast<const bf16*>(dout);
+  const int q_tiles = (s + TILE_ROWS - 1) / TILE_ROWS;
+
+  cudaError_t err = allow_dynamic_smem(reinterpret_cast<const void*>(stats_kernel<HD>), StatsSmem<HD>::BYTES,
+                                       configured_stats);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stats_kernel<HD><<<dim3(q_tiles, b * h), WG, StatsSmem<HD>::BYTES, stream>>>(
+      qt, kt, static_cast<const bf16*>(o), dot, lse, delta, s, h, kv, scale, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  err = allow_dynamic_smem(reinterpret_cast<const void*>(dkdv_kernel<HD>), Ds::BYTES, configured_dkdv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkdv_kernel<HD><<<w.n_items, Ds::THREADS, Ds::BYTES, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), w.partial, w.items, s, h, kv,
+      scale, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  if (w.n_splits > 0) {
+    // A cut tile's 2 x 64 x HD sums over REDUCE_SPAN blocks, 8 a thread:
+    // one block a tile, as the split-TF32 route launches it, leaves most of
+    // the card idle at hd 256, where a few dozen tiles are cut.
+    constexpr int REDUCE_SPAN = 2 * TILE_ROWS * HD / (8 * THREADS);
+    dkdv_reduce_kernel<bf16, HD, TILE_ROWS><<<dim3(w.n_splits, REDUCE_SPAN), THREADS, 0, stream>>>(
+
+
+        w.partial, w.splits, static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, kv, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+
+  err = allow_dynamic_smem(reinterpret_cast<const void*>(dq_kernel<HD>), DqSmem<HD>::BYTES, configured_dq);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_kernel<HD><<<dim3(q_tiles, b * h), WG, DqSmem<HD>::BYTES, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dq), s, h, kv, scale, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int smem_of(int kernel) {
+  switch (kernel) {
+    case 0: return StatsSmem<HD>::BYTES;
+    case 1: return DkdvSmem<HD>::BYTES;
+    case 2: return DqSmem<HD>::BYTES;
     default: return -1;
   }
 }
+
+}  // namespace tc
 
 }  // namespace
 
@@ -970,10 +1612,12 @@ int smem_dispatch(int hd, int kernel) {
 // scale and window) given out and its gradient dout (b, s, h, hd).  All
 // tensors contiguous and 16-byte-aligned, kv dividing h, hd 16, 32, 64, 96,
 // 128 or 256; is_bf16 picks bfloat16 (1) or float32 (0) for every tensor.
-// lse and delta are float32 scratch of b * h * s elements each.  `items`
-// (n_items rows of 7 ints) and `splits` (n_splits rows of 4) are the dK/dV
-// work list and its cut key tiles (kernels/flash_attention.py::dkdv_work,
-// dkdv_splits) in device memory; `partial` holds 2 * rows * hd floats per
+// bfloat16 at hd 64, 96, 128 and 256 takes the wgmma kernels (tc::),
+// everything else the split-TF32 ones.  lse and delta are float32 scratch
+// of b * h * s elements each.  `items` (n_items rows of 7 ints) and
+// `splits` (n_splits rows of 4) are the dK/dV work list and its cut key
+// tiles (kernels/flash_attention.py::dkdv_work, dkdv_splits, at the route's
+// tile rows) in device memory; `partial` holds 2 * rows * hd floats per
 // slot they name.  Launches the kernels on `stream` without synchronising
 // and returns the first CUDA error (0 when every launch was accepted).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
@@ -989,14 +1633,50 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   auto* d = static_cast<float*>(delta);
   const Work w{static_cast<float*>(partial), static_cast<const int*>(items), n_items,
                static_cast<const int*>(splits), n_splits};
-  if (is_bf16)
-    return dispatch<bf16>(q, k, v, o, dout, dq, dk, dv, l, d, w, b, s, h, kv, hd, scale, window, st);
-  return dispatch<float>(q, k, v, o, dout, dq, dk, dv, l, d, w, b, s, h, kv, hd, scale, window, st);
+  if (is_bf16) {
+    switch (hd) {
+      case 16: return launch<bf16, 16>(q, k, v, o, dout, dq, dk, dv, l, d, w, b, s, h, kv, scale, window, st);
+      case 32: return launch<bf16, 32>(q, k, v, o, dout, dq, dk, dv, l, d, w, b, s, h, kv, scale, window, st);
+      case 64: return tc::launch<64>(q, k, v, o, dout, dq, dk, dv, l, d, w, b, s, h, kv, scale, window, st);
+      case 96: return tc::launch<96>(q, k, v, o, dout, dq, dk, dv, l, d, w, b, s, h, kv, scale, window, st);
+      case 128: return tc::launch<128>(q, k, v, o, dout, dq, dk, dv, l, d, w, b, s, h, kv, scale, window, st);
+      case 256: return tc::launch<256>(q, k, v, o, dout, dq, dk, dv, l, d, w, b, s, h, kv, scale, window, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (hd) {
+    case 16: return launch<float, 16>(q, k, v, o, dout, dq, dk, dv, l, d, w, b, s, h, kv, scale, window, st);
+    case 32: return launch<float, 32>(q, k, v, o, dout, dq, dk, dv, l, d, w, b, s, h, kv, scale, window, st);
+    case 64: return launch<float, 64>(q, k, v, o, dout, dq, dk, dv, l, d, w, b, s, h, kv, scale, window, st);
+    case 96: return launch<float, 96>(q, k, v, o, dout, dq, dk, dv, l, d, w, b, s, h, kv, scale, window, st);
+    case 128: return launch<float, 128>(q, k, v, o, dout, dq, dk, dv, l, d, w, b, s, h, kv, scale, window, st);
+    case 256: return launch<float, 256>(q, k, v, o, dout, dq, dk, dv, l, d, w, b, s, h, kv, scale, window, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// Dynamic shared memory (bytes) of one kernel of this file at head_dim hd
-// and type is_bf16: kernel 0 stats, 1 dK/dV, 2 dQ (the reduction takes
-// none); -1 for another hd or kernel.
+// Dynamic shared memory (bytes) of one kernel that a call at head_dim hd
+// and type is_bf16 launches: kernel 0 stats, 1 dK/dV, 2 dQ (the reduction
+// takes none); -1 for another hd or kernel.
 extern "C" int flash_attention_bwd_smem(int hd, int is_bf16, int kernel) {
-  return is_bf16 ? smem_dispatch<bf16>(hd, kernel) : smem_dispatch<float>(hd, kernel);
+  if (is_bf16) {
+    switch (hd) {
+      case 16: return smem_of<bf16, 16>(kernel);
+      case 32: return smem_of<bf16, 32>(kernel);
+      case 64: return tc::smem_of<64>(kernel);
+      case 96: return tc::smem_of<96>(kernel);
+      case 128: return tc::smem_of<128>(kernel);
+      case 256: return tc::smem_of<256>(kernel);
+      default: return -1;
+    }
+  }
+  switch (hd) {
+    case 16: return smem_of<float, 16>(kernel);
+    case 32: return smem_of<float, 32>(kernel);
+    case 64: return smem_of<float, 64>(kernel);
+    case 96: return smem_of<float, 96>(kernel);
+    case 128: return smem_of<float, 128>(kernel);
+    case 256: return smem_of<float, 256>(kernel);
+    default: return -1;
+  }
 }

@@ -23,12 +23,16 @@ and no input is padded to another head_dim.  Both copy 16-byte chunks with
 The gradient is a kernel too: ``causal_attention`` is the entry of the
 autograd function ``_FlashAttention`` whenever a gradient is asked for, and
 its backward launches the hand-written ``flash_attention_bwd`` kernels
-(``csrc/flash_attention_bwd.cu``: TF32 ``mma.sync`` products with every
-inexact operand split into a high and a low part, for every type and
-head_dim), with ``causal_attention_bwd_plain`` as their plain version.
-Their dK/dV kernel walks a work list that ``dkdv_work`` builds in plain
-Python, once per shape.  The JAX package differentiates
-``attention_chunked`` with XLA instead; it has no backward kernel.
+(``csrc/flash_attention_bwd.cu``), with ``causal_attention_bwd_plain`` as
+their plain version.  ``bwd_route`` says which of its two routes a call
+takes, as its C dispatch does: bfloat16 at head_dim 64, 96, 128 or 256 on
+``wgmma`` (bfloat16 operands, p and ds rounded to bfloat16, float32
+sums); every float32 shape and bfloat16 at 16 or 32 on TF32 ``mma.sync``
+with every inexact operand split into a high and a low part.  Their dK/dV
+kernels walk a work list that ``dkdv_work`` builds in plain Python, once
+per shape, for the route's tile rows (``bwd_tile_rows``).  The JAX package
+differentiates ``attention_chunked`` with XLA instead; it has no backward
+kernel.
 
 On fake tensors (a counted fake run of a step, ``roofline.counter``) the
 forward and the backward take their fake forms: the checks and allocations
@@ -68,9 +72,21 @@ NUM_SMS = 132
 MIN_ITEM_STEPS = 16
 
 
-def bwd_tile_rows(head_dim: int) -> int:
-    """Rows of the dK/dV kernel's key and query tiles at ``head_dim``, as
-    ``flash_attention_bwd.cu``'s ``KvTile`` sets them."""
+def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which backward kernels a CUDA call of ``dtype`` and ``head_dim``
+    launches: ``"tensor-core"`` (bfloat16 ``wgmma``, ``tc::`` in
+    ``flash_attention_bwd.cu``) or ``"tf32-mma"`` (split-TF32
+    ``mma.sync``), as that file's dispatch decides: the forward's cases,
+    so a call's gradient runs on the forward's route."""
+    return route(dtype, head_dim)
+
+
+def bwd_tile_rows(head_dim: int, dtype: torch.dtype) -> int:
+    """Rows of the dK/dV kernel's key and query tiles at ``head_dim`` and
+    ``dtype``: 64, wgmma's M, on the tensor-core route (``tc::TILE_ROWS``),
+    and as ``KvTile`` sets them on the split-TF32 one."""
+    if bwd_route(dtype, head_dim) == "tensor-core":
+        return 64
     return 64 if head_dim <= 96 else 32
 
 
@@ -146,18 +162,18 @@ def dkdv_splits(items: np.ndarray) -> np.ndarray:
 
 
 @functools.cache
-def _dkdv_items(b: int, s_len: int, h: int, kv: int, hd: int, window: int) -> tuple[np.ndarray, int]:
-    """The work list of one shape and the partial slots it needs; built
-    once per shape."""
-    items = dkdv_work(b, s_len, h, kv, bwd_tile_rows(hd), window)
+def _dkdv_items(b: int, s_len: int, h: int, kv: int, rows: int, window: int) -> tuple[np.ndarray, int]:
+    """The work list of one shape at tiles of ``rows`` and the partial
+    slots it needs; built once per shape."""
+    items = dkdv_work(b, s_len, h, kv, rows, window)
     return items, int(items[:, 6].max()) + 1 if len(items) else 0
 
 
 @functools.cache
-def _dkdv_plan(b: int, s_len: int, h: int, kv: int, hd: int, window: int, device: torch.device):
+def _dkdv_plan(b: int, s_len: int, h: int, kv: int, rows: int, window: int, device: torch.device):
     """The work list and split list of one shape on ``device``; built once
     per shape."""
-    items, _ = _dkdv_items(b, s_len, h, kv, hd, window)
+    items, _ = _dkdv_items(b, s_len, h, kv, rows, window)
     return torch.from_numpy(items).to(device), torch.from_numpy(dkdv_splits(items)).to(device)
 
 
@@ -368,9 +384,10 @@ def causal_attention_bwd(
     On CUDA tensors (as the forward kernel takes them; o and do of q's
     shape, dtype and device, contiguous; all five 16-byte-aligned, as the
     kernels copy 16-byte chunks with ``cp.async``) this launches the
-    ``flash_attention_bwd`` kernels on the current stream and raises if it
-    cannot; on CPU tensors it computes ``causal_attention_bwd_plain``, and
-    on fake tensors it takes its fake form.
+    ``flash_attention_bwd`` kernels of the route ``bwd_route`` names on the
+    current stream and raises if it cannot; on CPU tensors it computes
+    ``causal_attention_bwd_plain``, and on fake tensors it takes its fake
+    form, which allocates what the launch would.
     ``causal_attention_bwd.launches`` counts the calls that launched them.
     """
     build.refuse_dtensors("flash_attention_bwd", q, k, v, o, do)
@@ -389,8 +406,8 @@ def causal_attention_bwd(
         raise ValueError("the flash_attention backward kernel takes contiguous o and do")
     b, s, h, hd = q.shape
     kv = k.shape[2]
-    rows = bwd_tile_rows(hd)
-    _, slots = _dkdv_items(b, s, h, kv, hd, int(window))
+    rows = bwd_tile_rows(hd, q.dtype)
+    _, slots = _dkdv_items(b, s, h, kv, rows, int(window))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stats = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device)   # lse, delta
     # One float32 (dk, dv) tile of partial sums per slot of a cut key tile.
@@ -400,7 +417,7 @@ def causal_attention_bwd(
         return dq, dk, dv
     check_alignment(q, k, v, o, do)
     kernel = _bwd_kernel()
-    items, splits = _dkdv_plan(b, s, h, kv, hd, int(window), q.device)
+    items, splits = _dkdv_plan(b, s, h, kv, rows, int(window), q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = kernel(

@@ -263,7 +263,11 @@ BQ = 64
 
 
 def _cu_source():
-    return (fa_mod.build.CSRC_DIR / "flash_attention.cu").read_text()
+    """``flash_attention.cu`` followed by ``wgmma.cuh``, where its tiles'
+    panels, ``load_tile``, the descriptors and the wgmma instructions live
+    (shared with the backward)."""
+    csrc = fa_mod.build.CSRC_DIR
+    return (csrc / "flash_attention.cu").read_text() + "\n" + (csrc / "wgmma.cuh").read_text()
 
 
 def _flat(src):
@@ -271,7 +275,8 @@ def _flat(src):
 
 
 def _panel(hd):
-    """``tc::Panel<hd>``, its constants parsed from ``flash_attention.cu``."""
+    """``Panel<hd>``, its constants parsed from ``wgmma.cuh`` (through
+    ``_cu_source``)."""
     src = _cu_source()
     wide_div = re.search(r"WIDE = HD % (\d+) == 0;", src)
     cols = re.search(r"COLS = WIDE \? (\d+) : (\d+);", src)
@@ -279,7 +284,7 @@ def _panel(hd):
     swz = re.search(
         r"P::WIDE \? \(\(c % (\d+)\) \^ \(r % (\d+)\)\) : \(\(c % (\d+)\) \^ \(\(r >> (\d+)\) % (\d+)\)\)", src
     )
-    assert wide_div and cols and mode and swz, "tc::Panel's definition changed"
+    assert wide_div and cols and mode and swz, "Panel's definition changed"
     for derived in ("ROW = 2 * COLS;", "CHUNKS = ROW / 16;", "ATOM = 8 * ROW;", "STEPS = ROW / 32;"):
         assert derived in src, derived
     wide = hd % int(wide_div.group(1)) == 0

@@ -216,13 +216,19 @@ def test_backward_wrapper_rejects_a_mismatched_output(which):
 
 
 def test_backward_source_dispatches_every_head_dim():
-    """The launch dispatch and the shared-memory query both cover
-    ``HEAD_DIMS``, in order."""
+    """The launch entry and the shared-memory query each cover
+    ``HEAD_DIMS`` in order, in their bfloat16 switch and their float32 one
+    (which routes each case takes: ``test_torch_flash_backward_tc.py``)."""
     src = (fa_mod.build.CSRC_DIR / "flash_attention_bwd.cu").read_text()
-    for entry, call in (("int dispatch(", "launch"), ("int smem_dispatch(", "smem_of")):
+    for entry, call in (('extern "C" int flash_attention_bwd(', "launch"),
+                        ('extern "C" int flash_attention_bwd_smem(', "smem_of")):
         body = src[src.index(entry):]
-        body = body[: body.index("default:")]
-        assert tuple(int(d) for d in re.findall(rf"case (\d+): return {call}<T, \1>", body)) == HEAD_DIMS
+        bf16_switch = body[body.index("if (is_bf16) {"):]
+        f32_switch = bf16_switch[bf16_switch.index("default:") + 1:]
+        for part in (bf16_switch[:bf16_switch.index("default:")], f32_switch[:f32_switch.index("default:")]):
+            cases = re.findall(rf"case (\d+): return (?:tc::)?{call}<(?:\w+, )?(\d+)>", part)
+            assert all(a == b for a, b in cases)
+            assert tuple(int(a) for a, _ in cases) == HEAD_DIMS
 
 
 @pytest.mark.cuda

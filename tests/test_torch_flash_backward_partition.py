@@ -1,10 +1,11 @@
-"""The redesigned backward kernel's plan and fragments, on the CPU.
+"""The backward's split-TF32 route (every float32 call, bfloat16 at
+head_dim 16 and 32): its plan and fragments, on the CPU.
 
 ``flash_attention_bwd.cu``'s dK/dV kernel walks a work list that
-``kernels/flash_attention.py::dkdv_work`` builds in plain Python; its
-products run on ``mma.sync.m16n8k8`` with fragments read from shared
-memory.  Neither runs here, so this file holds what can be held without a
-card:
+``kernels/flash_attention.py::dkdv_work`` builds in plain Python, here at
+the split-TF32 route's tile rows; its products run on ``mma.sync.m16n8k8``
+with fragments read from shared memory.  Neither runs here, so this file
+holds what can be held without a card:
 
 - the work list covers every visible (key tile, query tile, head) step once
   and no invisible one, keeps its items within the cap, heaviest first,
@@ -16,8 +17,12 @@ card:
 - a model of the mma fragments, with the index maps the source uses
   (``rows_by_rows``; ``rows_by_cols`` with the k index permuted inside each
   k8 step), gives the products they stand for;
-- the source dispatches every head_dim, runs its products on ``mma.sync``
-  TF32 and has no atomics.
+- the source dispatches every head_dim, runs this route's products on
+  ``mma.sync`` TF32 and the bfloat16 route's on ``wgmma``, and has no
+  atomics.
+
+The wgmma route's plan and fragments are held in
+``tests/test_torch_flash_backward_tc.py``.
 
 The kernel itself is held against the plain version by the card-only tests
 in ``tests/test_torch_flash_backward.py`` and by ``chip_smoke.py``.
@@ -89,7 +94,7 @@ def _cap(items):
 def test_work_list_covers_every_visible_step_once(shape, rows):
     """At the kernel's tile rows and at others."""
     b, s, h, kv, hd, window = shape
-    rows = rows or bwd_tile_rows(hd)
+    rows = rows or bwd_tile_rows(hd, torch.float32)
     items = dkdv_work(b, s, h, kv, rows, window)
     assert items.dtype == np.int32 and items.shape[1] == len(DKDV_ITEM_FIELDS)
     got = [(bkv, kt, qt, g) for bkv, kt, h0, h1, t0, t1, _ in items.tolist()
@@ -101,7 +106,7 @@ def test_work_list_covers_every_visible_step_once(shape, rows):
 @pytest.mark.parametrize("shape", PLAN_SHAPES + TRAIN_SHAPES)
 def test_work_list_is_capped_heaviest_first_and_numbers_its_cuts(shape):
     b, s, h, kv, hd, window = shape
-    items = dkdv_work(b, s, h, kv, bwd_tile_rows(hd), window)
+    items = dkdv_work(b, s, h, kv, bwd_tile_rows(hd, torch.float32), window)
     steps = _steps(items)
     assert (steps >= 1).all()
     assert steps.max() <= _cap(items)
@@ -135,15 +140,15 @@ def test_longest_item_is_within_the_mean_work_per_sm(shape):
     126.06 a SM) that is 124 against the 256 of the first key tile whole,
     and the list fills the card."""
     b, s, h, kv, hd, window = shape
-    items = dkdv_work(b, s, h, kv, bwd_tile_rows(hd), window)
+    items = dkdv_work(b, s, h, kv, bwd_tile_rows(hd, torch.float32), window)
     steps = _steps(items)
     assert steps.max() <= steps.sum() / NUM_SMS
     assert len(items) >= NUM_SMS
     if shape == (2, 2048, 4, 1, 256, 0):
-        assert bwd_tile_rows(hd) == 32 and steps.sum() == 16640 and steps.max() <= 126
+        assert bwd_tile_rows(hd, torch.float32) == 32 and steps.sum() == 16640 and steps.max() <= 126
     # Scratch for the cut tiles' partials: some tens of MB at most.
     slots = int(items[:, 6].max()) + 1
-    assert slots * 2 * bwd_tile_rows(hd) * hd * 4 <= 64 * 2**20
+    assert slots * 2 * bwd_tile_rows(hd, torch.float32) * hd * 4 <= 64 * 2**20
 
 
 def _decomposition(q, k, v, o, do, scale, window, rows):
@@ -208,7 +213,7 @@ def test_decomposition_model_equals_the_plain_backward(shape):
                    for shp in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, h, hd)))
     scale = hd ** -0.5
     o = causal_attention_plain(q, k, v, scale=scale, window=window)
-    rows = bwd_tile_rows(hd)
+    rows = bwd_tile_rows(hd, torch.float32)
     assert (dkdv_work(b, s, h, kv, rows, window)[:, 6] >= 0).any()
     dk, dv = _decomposition(q, k, v, o, do, scale, window, rows)
     _, want_dk, want_dv = causal_attention_bwd_plain(q, k, v, o, do, scale=scale, window=window)
@@ -367,12 +372,21 @@ def _source():
 
 
 def test_source_runs_split_tf32_mma_and_no_atomics():
+    """The split-TF32 kernels (outside ``namespace tc``) run ``mma.sync``
+    TF32 through tf32.cuh, the bfloat16 route's (``tc::``) ``wgmma`` through
+    wgmma.cuh, and neither the source nor its headers use atomics."""
     src = _source()
     header = (fa_mod.build.CSRC_DIR / "tf32.cuh").read_text()
+    wgmma = (fa_mod.build.CSRC_DIR / "wgmma.cuh").read_text()
     assert '#include "tf32.cuh"' in src and '#include "tf32.cuh"' in (fa_mod.build.CSRC_DIR / "wkv6.cu").read_text()
+    assert '#include "wgmma.cuh"' in src
     assert re.search(r"mma\.sync\.aligned\.m16n8k8\.row\.col\.f32\.tf32\.tf32\.f32", header)
-    assert "tf32::split" in src and "tf32::mma(" in src and "cp_async16" in src
-    assert not re.search(r"atomic[A-Z]|\batom\.|red\.global", src)
+    split, tc = src[:src.index("namespace tc {")], src[src.index("namespace tc {"):]
+    assert "tf32::split" in split and "tf32::mma(" in split and "cp_async16" in split and "wgmma_" not in split
+    assert "wgmma_ss<" in tc and "wgmma_rs<" in tc and "tf32::mma" not in tc
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in wgmma
+    for text in (src, header, wgmma):
+        assert not re.search(r"atomic[A-Z]|\batom\.|\bred\.global", text)
     small, large = map(int, re.search(r"value = HD <= 96 \? (\d+) : (\d+);", src).groups())
-    assert all(bwd_tile_rows(hd) == (small if hd <= 96 else large) for hd in HEAD_DIMS)
+    assert all(bwd_tile_rows(hd, torch.float32) == (small if hd <= 96 else large) for hd in HEAD_DIMS)
     assert f"ITEM_FIELDS = {len(DKDV_ITEM_FIELDS)};" in src

@@ -134,6 +134,14 @@ and prints no result line):
    beside ``count_step`` of the same bundle on fake host tensors (they
    must be equal), and ``compute_s`` and ``memory_s`` beside the call's
    device time (CUDA events);
+7f. the examples: each ``examples/torch_*.py`` (quickstart, multi-tenant
+   serving, dynamic adaptation, fleet serving, training) run in this
+   process on the card at its default size through its ``main``; each
+   must finish without an error, the serving example must launch
+   ``block_matmul`` (its GPU prefixes) and the training example
+   ``flash_attention`` and ``flash_attention_bwd``, with the launch counts
+   set to 0 before each and read after; they print their serving
+   latencies and loss curve;
 8. the device stepper's recurrence: ``lindley_ends`` on the card at 7,
    4097 and 2^20 requests (a clock past 5,000 s) against the float64
    ``_server_ends``, within 2e-6 s of delay;
@@ -2273,6 +2281,46 @@ def phase_dryrun_card() -> list[dict]:
     return records
 
 
+EXAMPLES = {
+    # example -> the kernels it must launch on the card
+    "torch_quickstart": (),
+    "torch_multi_tenant_serve": ("block_matmul",),
+    "torch_dynamic_adaptation": (),
+    "torch_fleet_serve": (),
+    "torch_train_small": ("flash_attention", "flash_attention_bwd"),
+}
+
+
+def phase_examples() -> dict:
+    """Phase 7f: each ``examples/torch_*.py`` through its ``main`` at its
+    default size on the card; returns each one's seconds and launches (and
+    the training example's loss every 10 steps)."""
+    out = {}
+    for name, kernels in EXAMPLES.items():
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        for k in KERNELS:
+            k["wrapper"].launches = 0
+        t0 = time.perf_counter()
+        result = module.main([])
+        torch.cuda.synchronize()
+        record = {"seconds": round(time.perf_counter() - t0, 3),
+                  "launches": {n: v for n, v in launch_counts().items() if v}}
+        missing = [k for k in kernels if not record["launches"].get(k)]
+        if missing:
+            raise AssertionError(f"{name} launched no {missing} on the card")
+        if name == "torch_train_small":
+            record["loss_every_10_steps"] = [round(x, 4) for x in result[::10]] + [round(result[-1], 4)]
+        if name == "torch_multi_tenant_serve":
+            record["requests"] = len(result)
+            if not all(c.error is None for c in result):
+                raise AssertionError(f"{name}: a request failed")
+        print(f"{name}: {record}")
+        out[name] = record
+    return out
+
+
 def dryrun_card_bundle(cfg, shape, mesh) -> dict:
     label = f"{cfg.name} x {shape.name} (global batch {shape.global_batch})"
     bundle = build_step(cfg, shape, mesh)
@@ -2885,11 +2933,20 @@ def main() -> int:
     phase("where the time goes", phase_breakdown, plan)
 
     calls = Counter()
-    launches = Counter({"block_matmul": cnn_launches["block_matmul"]})
+    launches = Counter()
+    by_path = {}           # kernel -> {path: launches}: the kernels line's totals, path by path
+
+    def on_path(label, counts):
+        launches.update(counts)
+        for n, v in counts.items():
+            if v:
+                by_path.setdefault(n, {})[label] = v
+
+    on_path("serving the CNN mix", {"block_matmul": cnn_launches["block_matmul"]})
     zoo_launches = {}
     for name in ZOO:
         zoo_launches[name] = phase(f"model-zoo path: {name}", phase_zoo_path, name, calls)
-        launches.update(zoo_launches[name])
+        on_path(name, zoo_launches[name])
     print(f"model-zoo launches per path: {zoo_launches}")
     print("model-zoo kernel calls per prefill: " + "; ".join(
         f"{k} {key} {str(dt)[6:]} x{n}" for (k, key, dt), n in calls.items()
@@ -2931,7 +2988,7 @@ def main() -> int:
     train = {}
     for name in TRAIN:
         train[name] = phase(f"train path: {name}", phase_train_path, name, train_calls)
-        launches.update(train[name]["launches"])
+        on_path(f"train {name}", train[name]["launches"])
     print("train path kernel calls per step: " + "; ".join(
         f"{k} {key} {str(dt)[6:]} x{n // (TRAIN_TIMED + 1)}" for (k, key, dt), n in train_calls.items()
     ))
@@ -2947,7 +3004,7 @@ def main() -> int:
     try:
         for name in PROD_ARCHS:
             prod[name] = phase(f"production train path (bf16): {name}", phase_prod_train, name, mesh, prod_calls)
-            launches.update(prod[name]["launches"])
+            on_path(f"production train bf16 {name}", prod[name]["launches"])
     finally:
         torch.distributed.destroy_process_group()
     print("production train path kernel calls per step: " + "; ".join(
@@ -2955,6 +3012,9 @@ def main() -> int:
     ))
     phase("production train correctness: bf16 gradient, kernels against plain versions", phase_prod_check)
     dryrun = phase("dry run against the card: predicted per-rank peak and FLOPs", phase_dryrun_card)
+    examples = phase("examples on the card: examples/torch_*.py at their default sizes", phase_examples)
+    for name, record in examples.items():
+        on_path(f"examples {name}", record["launches"])
 
     # wkv6's route at each (type, head_dim) it ran at on the path and in the
     # float32 full-forward check.
@@ -2989,6 +3049,7 @@ def main() -> int:
             "source": k["source"],
             "replaces": k["replaces"],
             "launches": launches[name],
+            "launches_by_path": by_path[name],
             "max_abs_err": checks[name]["max_abs_err"],
             **times[name],
             **({"shapes_checked": checks[name]["shapes_checked"]} if "shapes_checked" in checks[name] else {}),
@@ -2996,38 +3057,27 @@ def main() -> int:
                if name == "block_matmul" else {}),
             **({"sass_hgmma": hgmma, "sass_hmma": fwd_hmma, "registers": fwd_resources["registers"],
                 "smem_bytes": fwd_resources["smem_bytes"],
-                "launches_by_path": {n: v["flash_attention"] for n, v in zoo_launches.items()
-                                                          if "flash_attention" in v}
-                | {f"train {n}": v["launches"]["flash_attention"] for n, v in train.items()
-                   if v["launches"]["flash_attention"]}
-                | {f"production train bf16 {n}": v["launches"]["flash_attention"] for n, v in prod.items()},
                 "routes": flash_routes, "train_forward_f32": train_forward,
                 "train_bf16": prod_times["flash_attention"]} if name == "flash_attention" else {}),
             **({"sass_hmma": hmma, "routes": wkv_routes, "train_forward_f32": wkv_train_forward,
-                "registers": wkv_resources["registers"], "smem_bytes": wkv_resources["smem_bytes"],
-                "launches_by_path": {n: v["wkv6"] for n, v in zoo_launches.items() if "wkv6" in v}
-                | {f"train {n}": v["launches"]["wkv6"] for n, v in train.items() if v["launches"]["wkv6"]}}
+                "registers": wkv_resources["registers"], "smem_bytes": wkv_resources["smem_bytes"]}
                if name == "wkv6" else {}),
-            **({"launches_by_path": {f"train {n}": v["launches"][name] for n, v in train.items()
-                                      if v["launches"][name]}
-                | {f"production train bf16 {n}": v["launches"][name] for n, v in prod.items()},
-                "shapes": sorted({str(key) for (k2, key, _dt) in train_calls if k2 == name}),
+            **({"shapes": sorted({str(key) for (k2, key, _dt) in train_calls if k2 == name}),
                 "sass_hmma": bwd_hmma, "sass_dmma": bwd_dmma, "sass_hgmma": bwd_hgmma,
                 "registers": bwd_resources["registers"], "smem_bytes": bwd_resources["smem_bytes"],
                 "routes": {f"{str(dt)[6:]} hd {key[4]}": bwd_route(dt, key[4])
                            for (k2, key, dt) in (*train_calls, *prod_calls) if k2 == name},
                 "train_bf16": prod_times["flash_attention_bwd"]}
                if name == "flash_attention_bwd" else {}),
-            **({"launches_by_path": {f"train {n}": v["launches"][name] for n, v in train.items()
-                                      if v["launches"][name]},
-                "shapes": sorted({str(key) for (k2, key, _dt) in train_calls if k2 == name}),
+            **({"shapes": sorted({str(key) for (k2, key, _dt) in train_calls if k2 == name}),
                 "registers": wkv_bwd_resources["registers"], "spills": 0,
                 "smem_bytes": wkv_bwd_resources["smem_bytes"], "sass_hmma": wkv_bwd_hmma}
                if name == "wkv6_bwd" else {}),
         })
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"torch_ops": torch_ops, "ssm_scans": scans}))
-    print(json.dumps({"train": train, "production_train_bf16": prod, "dryrun_vs_card": dryrun}))
+    print(json.dumps({"train": train, "production_train_bf16": prod, "dryrun_vs_card": dryrun,
+                      "examples": examples}))
     print(json.dumps({"kernels": line}))
     print(json.dumps({
         "ok": True,

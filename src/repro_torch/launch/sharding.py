@@ -380,3 +380,22 @@ def distribute(tree: Any, mesh, placements_tree: Any) -> Any:
     return tree_unflatten(tree, [
         distribute_tensor(t, mesh, list(pl)) for (_, t), pl in zip(flat, places)
     ])
+
+
+def lay_out(outputs: tuple, placements_trees: tuple) -> tuple:
+    """A step's ``outputs`` with each DTensor leaf under its placements in
+    ``placements_trees`` (one tree per output, of the output's structure),
+    as the reference's ``jit`` lays out a step's outputs under
+    ``out_shardings``; plain tensors pass as they are."""
+    from repro_torch.models.sharding_utils import _is_dtensor, relayout
+
+    out = []
+    for tree, placements_tree in zip(outputs, placements_trees, strict=True):
+        flat = leaves_with_paths(tree)
+        places = [p for _, p in _spec_leaves(placements_tree)]
+        if len(places) != len(flat):
+            raise ValueError(f"{len(flat)} tensors but {len(places)} placements")
+        out.append(tree_unflatten(tree, [
+            relayout(t, pl) if _is_dtensor(t) else t for (_, t), pl in zip(flat, places)
+        ]))
+    return tuple(out)

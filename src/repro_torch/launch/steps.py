@@ -145,11 +145,16 @@ def build_train(cfg: ArchConfig, shape: InputShape, mesh) -> StepBundle:
         "loss": shd.replicated(mesh),
         "grad_norm": shd.replicated(mesh),
     }
+    out_shard = (p_shard, o_shard, metrics_shard)
+
+    def fn(params, opt_state, batch, lr_scale=1.0):
+        return shd.lay_out(step(params, opt_state, batch, lr_scale), out_shard)
+
     return StepBundle(
-        fn=step,
+        fn=fn,
         args=(params_sds, opt_sds, batch_sds),
         in_placements=(p_shard, o_shard, b_shard),
-        out_placements=(p_shard, o_shard, metrics_shard),
+        out_placements=out_shard,
         donate_argnums=(0, 1),
         description=f"train_step[{cfg.name} x {shape.name}] "
         f"(micro={tcfg.n_microbatches})",
@@ -165,9 +170,6 @@ def build_prefill(cfg: ArchConfig, shape: InputShape, mesh) -> StepBundle:
     specs.pop("labels")
     batch_sds = _abstract(mode, specs, device)
 
-    def fn(params, batch):
-        return prefill_step(cfg, params, batch, max_len=shape.seq_len)
-
     with mode:
         caches_sds = _on(init_decode_caches(cfg, shape.global_batch, shape.seq_len, device="cpu"), device)
     p_shard = shd.param_shardings(cfg, mesh, params_sds)
@@ -181,6 +183,11 @@ def build_prefill(cfg: ArchConfig, shape: InputShape, mesh) -> StepBundle:
         ),
         mesh,
     )
+
+    def fn(params, batch):
+        out = prefill_step(cfg, params, batch, max_len=shape.seq_len)
+        return shd.lay_out(out, (logits_shard, c_shard))
+
     return StepBundle(
         fn=fn,
         args=(params_sds, batch_sds),
@@ -199,9 +206,6 @@ def build_decode(cfg: ArchConfig, shape: InputShape, mesh) -> StepBundle:
         caches_sds = _on(init_decode_caches(cfg, shape.global_batch, shape.seq_len, device="cpu"), device)
         len_sds = torch.empty((), dtype=torch.int32, device=device)
     tok_sds = _abstract(mode, {"tokens": decode_token_specs(cfg, shape.global_batch)}, device)["tokens"]
-
-    def fn(params, caches, tokens, cur_len):
-        return decode_step(cfg, params, caches, tokens, int(cur_len))
 
     view = mesh_view(mesh)
     p_shard = shd.param_shardings(cfg, mesh, params_sds)
@@ -224,11 +228,16 @@ def build_decode(cfg: ArchConfig, shape: InputShape, mesh) -> StepBundle:
         else shd.P(None, None, vocab_ax)
     )
     logits_spec = shd._sanitize(logits_spec, (b, 1, cfg.vocab_size), view)
+    out_shard = (shd.placements(logits_spec, mesh), c_shard)
+
+    def fn(params, caches, tokens, cur_len):
+        return shd.lay_out(decode_step(cfg, params, caches, tokens, int(cur_len)), out_shard)
+
     return StepBundle(
         fn=fn,
         args=(params_sds, caches_sds, tok_sds, len_sds),
         in_placements=(p_shard, c_shard, t_shard, l_shard),
-        out_placements=(shd.placements(logits_spec, mesh), c_shard),
+        out_placements=out_shard,
         donate_argnums=(1,),
         description=f"decode_step[{cfg.name} x {shape.name}]",
         cfg=cfg, shape=shape, mesh=mesh,

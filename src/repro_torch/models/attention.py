@@ -18,7 +18,14 @@ import torch
 
 from repro_torch.kernels.flash_attention import causal_attention
 from repro_torch.models.layers import NEG_INF, Params, apply_rope, normal
-from repro_torch.models.sharding_utils import _is_dtensor, even, head_placements, on_shards, unflatten
+from repro_torch.models.sharding_utils import (
+    _is_dtensor,
+    even,
+    head_placements,
+    on_shards,
+    unflatten,
+    write_position,
+)
 
 
 def attn_init(
@@ -173,8 +180,8 @@ def attn_decode_step(
     q, k_new, v_new = _project_qkv(x, p, n_heads, n_kv_heads, head_dim)
     q = apply_rope(q, pos, rope_theta)
     k_new = apply_rope(k_new, pos, rope_theta)
-    k_cache[:, cur_len] = k_new[:, 0]
-    v_cache[:, cur_len] = v_new[:, 0]
+    write_position(k_cache, cur_len, k_new[:, 0])
+    write_position(v_cache, cur_len, v_new[:, 0])
 
     kv_pos = torch.arange(s_max, device=x.device)
     mask = kv_pos <= cur_len
@@ -207,8 +214,8 @@ def attn_decode_step_ring(
     q = apply_rope(q, pos, rope_theta)
     k_new = apply_rope(k_new, pos, rope_theta)
     slot = cur_len % w
-    k_cache[:, slot] = k_new[:, 0]
-    v_cache[:, slot] = v_new[:, 0]
+    write_position(k_cache, slot, k_new[:, 0])
+    write_position(v_cache, slot, v_new[:, 0])
 
     occupied = torch.arange(w, device=x.device) <= cur_len
     out = _gqa_cache_attention(q, k_cache, v_cache, occupied, 1.0 / np.sqrt(head_dim))

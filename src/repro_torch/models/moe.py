@@ -19,11 +19,18 @@ in float32 with ``index_add_`` and rounded once, as the reference's einsum
 accumulates in float32.  Experts that no token reached cost nothing, so a
 decode step reads only the weights of the experts its tokens chose.
 
-On fake tensors (a counted dry run) there are no decisions to read: each
-expert then takes its whole capacity of ``G * C`` rows, the reference's
-static slots, and the experts run as batched products over their stack,
-so that the expert products and their memory are those of the reference's
-full-capacity dispatch.
+Under a mesh (DTensors) and on fake tensors (a counted dry run, which
+holds no decisions) the dispatch takes the reference's static slots
+instead: every expert takes its whole capacity of C rows a group, each
+group's (E, C) slots are filled by index from the group's own tokens, so
+that no rank gathers another batch shard's tokens, the experts run as
+batched products over their stack, and the combine adds each rank's slots
+and settles the sum in the tokens' layout.  The dispatched tokens ``xe``
+(G, E, C, D) take the reference's layout: pinned to ``(None, "model",
+"data", None)`` with ``weight_gather``, otherwise split over E as the expert
+stack is.  The expert products and their memory are those of the
+reference's full-capacity dispatch; its one-hot dispatch and combine
+products are not counted, since the slots are gathered.
 """
 from __future__ import annotations
 
@@ -35,7 +42,15 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import Params, normal
-from repro_torch.models.sharding_utils import constrain, is_fake, lifter, match, replica, whole_dim0
+from repro_torch.models.sharding_utils import (
+    _is_dtensor,
+    constrain,
+    is_fake,
+    join_rows,
+    on_shards,
+    relayout,
+    split_rows,
+)
 
 
 def moe_init(
@@ -106,6 +121,78 @@ def route(xg: torch.Tensor, router: torch.Tensor, k: int, C: int):
     return gates, assigned, keep, slot.long(), probs
 
 
+def _group_layout(x: torch.Tensor) -> list:
+    """The placements on DTensor ``x``'s mesh that keep its shards of the
+    leading (group) dimension and split nothing else."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(0) if p.is_shard(0) else Replicate() for p in x.placements]
+
+
+def _dispatch(xg, gates, keep, slot, C: int):
+    """The reference's static slots, filled on each rank's own groups:
+    returns (xe (G, E, C, D), w (G, E, C), tok (G, E, C)).  Slot c of
+    expert e in group g holds the group's token ``tok``, with combine
+    weight ``w`` (its gate rounded to ``xg.dtype``); a slot that no kept
+    token took holds token 0 with weight 0.  The reference fills the same
+    slots by the one-hot einsum ``gtd,gtec->gecd``; here they are gathered,
+    which costs no products."""
+
+    def fill(xg, gates, keep, slot):
+        G, gs, D = xg.shape
+        E = gates.shape[-1]
+        at = torch.where(keep, slot, C).transpose(1, 2)            # (G, E, gs); C: dropped
+        tok = torch.zeros((G, E, C + 1), dtype=torch.long, device=xg.device)
+        tok = tok.scatter_(2, at, torch.arange(gs, device=xg.device).expand(G, E, gs))[..., :C]
+        w = torch.zeros((G, E, C + 1), dtype=torch.float32, device=xg.device)
+        w = w.scatter_(2, at, gates.transpose(1, 2))[..., :C].to(xg.dtype)
+        xe = xg.gather(1, tok.reshape(G, E * C, 1).expand(G, E * C, D))
+        return xe.reshape(G, E, C, D), w, tok
+
+    if not _is_dtensor(xg):
+        return fill(xg, gates, keep, slot)
+    pl = _group_layout(xg)
+    return on_shards(fill, [xg, gates, keep, slot], [pl] * 4, [pl] * 3)
+
+
+def _combine(ye, w, tok, like):
+    """``y`` (G, gs, D) of ``like``'s shape, dtype and layout: each token's
+    expert outputs times their weights, summed in float32 and rounded once
+    (the reference's ``gecd,gtec->gtd``).  On DTensors each rank adds the
+    slots it holds: ``ye`` moves only where the groups are split and it is
+    not, and a split of the experts or a pending sum over a mesh dimension
+    leaves a pending sum of ``y``, which is settled in ``like``'s layout."""
+
+    def add(ye, w, tok):
+        G, E, C, D = ye.shape
+        y = torch.zeros((G, like.shape[1], D), dtype=torch.float32, device=ye.device)
+        idx = tok.reshape(G, E * C, 1).expand(G, E * C, D)
+        return y.scatter_add_(1, idx, (ye.float() * w.float()[..., None]).reshape(G, E * C, D))
+
+    if not _is_dtensor(ye):
+        return add(ye, w, tok).to(like.dtype)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    ye_pl, w_pl, y_pl = [], [], []
+    for lp, yp in zip(_group_layout(like), ye.placements):
+        if lp.is_shard(0):
+            ye_pl.append(lp), w_pl.append(lp), y_pl.append(lp)
+        elif yp.is_shard(1):               # experts split here: each rank adds its own
+            ye_pl.append(yp), w_pl.append(Shard(1)), y_pl.append(Partial())
+        elif yp.is_partial():
+            ye_pl.append(yp), w_pl.append(Replicate()), y_pl.append(Partial())
+        else:
+            ye_pl.append(Replicate()), w_pl.append(Replicate()), y_pl.append(Replicate())
+    mesh = like.device_mesh
+    # Against a pending sum of ye, each rank's gradient of w is a pending
+    # sum too.
+    w_grad = [Partial() if p.is_partial() else q for p, q in zip(ye_pl, w_pl)]
+    local = add(relayout(ye, ye_pl).to_local(), relayout(w, w_pl).to_local(grad_placements=w_grad),
+                relayout(tok, w_pl).to_local())
+    y = DTensor.from_local(local, mesh, y_pl, run_check=False, shape=like.shape, stride=like.stride())
+    return y.redistribute(mesh, like.placements).to(like.dtype)
+
+
 def _moe_groups(
     xg: torch.Tensor,        # (G, gs, D) token groups
     p: Params,
@@ -117,7 +204,8 @@ def _moe_groups(
     frac_tokens (E,), frac_probs (E,))."""
     G, gs, D = xg.shape
     E = p["router"].shape[-1]
-    gates, assigned, keep, _, probs = route(xg, p["router"], k, C)
+    gates, assigned, keep, slot, probs = route(xg, p["router"], k, C)
+    frac = assigned.mean((0, 1)), probs.mean((0, 1))
 
     w_gate, w_in, w_out = p["w_gate"], p["w_in"], p["w_out"]
     if weight_gather:
@@ -127,56 +215,102 @@ def _moe_groups(
         w_gate = constrain(w_gate, "model", None, None)
         w_in = constrain(w_in, "model", None, None)
         w_out = constrain(w_out, "model", None, None)
-    # Tokens and gates are gathered whole before they are indexed by token
-    # (a no-op without a mesh): DTensor would otherwise leave each gather
-    # pending as a masked partial sum, which it cannot hold for several
-    # experts at once.
-    xf = constrain(xg.reshape(G * gs, D), None, None)
-    gates = constrain(gates.reshape(G * gs, E), None, None)
-    y = torch.zeros_like(xf, dtype=torch.float32)
-    if is_fake(keep):
-        # Fake tensors (a counted dry run) hold no decisions: every expert
-        # takes its whole capacity, G * C rows, and the experts run as one
-        # batched product each, as the reference's static (G, E, C) slots
-        # and einsums do (an expert stack sharded by expert stays so).
-        lift = lifter(keep)
-        rows = lift(torch.zeros(E * G * C, dtype=torch.long, device=keep.device))
-        experts = lift(torch.arange(E, device=keep.device).repeat_interleave(G * C))
-        combine = gates[rows, experts].to(xg.dtype).float()
-        xe = xf[rows].reshape(E, G * C, D)
-        h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_in)
-        ye = torch.bmm(h, w_out).reshape(E * G * C, D)
-        y.index_add_(0, rows, match(ye.float() * combine[:, None], y))
-        return y.to(xg.dtype).reshape(G, gs, D), assigned.mean((0, 1)), probs.mean((0, 1))
+    if _is_dtensor(xg) or is_fake(xg):
+        # Under a mesh, and on fake tensors (a counted dry run, which holds
+        # no decisions), the reference's static (G, E, C) slots: every
+        # expert takes its whole capacity, each group's slots are filled
+        # from the group's own tokens, and the experts run as batched
+        # products over their stack, as the reference's einsums.
+        xe, w, tok = _dispatch(xg, gates, keep, slot, C)
+        ye = _experts(_expert_layout(xe, w_gate, weight_gather), w_gate, w_in, w_out)
+        if weight_gather:
+            ye = constrain(ye, None, "model", "data", None)
+        return _combine(ye, w, tok, xg), *frac
 
-    # The kept pairs' count depends on the data, which DTensor cannot
-    # propagate: the pairs are found on keep's full value, then lifted back.
-    keep, lift = replica(keep)
+    # Plain tensors: the kept pairs, expert by expert.
+    xf = xg.reshape(G * gs, D)
+    gates = gates.reshape(G * gs, E)
+    y = torch.zeros_like(xf, dtype=torch.float32)
     rows, experts = keep.reshape(G * gs, E).nonzero(as_tuple=True)   # token-major
     order = torch.argsort(experts, stable=True)
     rows, experts = rows[order], experts[order]
     counts = torch.bincount(experts, minlength=E).tolist()
-    rows, experts = lift(rows), lift(experts)
     combine = gates[rows, experts].to(xg.dtype).float()
-    # An expert stack sharded by expert is gathered once, whole in E, its
-    # other shards kept: picking expert e out of the shards would gather
-    # the stack again for every expert.
-    w_gate, w_in, w_out = (whole_dim0(w) for w in (w_gate, w_in, w_out))
     start = 0
     for e, n in enumerate(counts):
         if n == 0:
             continue
         idx = rows[start : start + n]
         xe = xf[idx]
-        if weight_gather:
-            xe = constrain(xe, "data", None)
         h = F.silu(xe @ w_gate[e]) * (xe @ w_in[e])
         ye = h @ w_out[e]
-        if weight_gather:
-            ye = constrain(ye, "data", None)
-        y.index_add_(0, idx, match(ye.float() * combine[start : start + n, None], y))
+        y.index_add_(0, idx, ye.float() * combine[start : start + n, None])
         start += n
-    return y.to(xg.dtype).reshape(G, gs, D), assigned.mean((0, 1)), probs.mean((0, 1))
+    return y.to(xg.dtype).reshape(G, gs, D), *frac
+
+
+def _experts(xe: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
+    """Every expert's SwiGLU over its slots, xe (G, E, C, D) -> (G, E, C,
+    D), as one batched product per weight over the expert stack (the
+    reference's ``gecd,edf->gecf`` einsums).
+
+    On DTensors each rank multiplies the slots it holds, and over each
+    mesh dimension: where xe splits the experts, the weights split them
+    too; where xe splits the tokens (groups or slots), the weights are
+    whole there (their shards gathered, never the tokens, as the
+    reference's ``weight_gather`` comment asks); where xe is whole, the
+    weights keep a split of d_ff (tensor parallel inside each expert) and
+    the output is a pending sum.  DTensor's own choice for the products
+    gathered every batch shard's tokens."""
+
+    def ffn(xe, w_gate, w_in, w_out):
+        G, E, C, D = xe.shape
+        xs = xe.transpose(0, 1).reshape(E, G * C, D)
+        h = F.silu(torch.bmm(xs, w_gate)) * torch.bmm(xs, w_in)
+        return torch.bmm(h, w_out).reshape(E, G, C, -1).transpose(0, 1).contiguous()
+
+    if not _is_dtensor(xe):
+        return ffn(xe, w_gate, w_in, w_out)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    x_pl, x_grad, i_pl, o_pl, w_grad, y_pl = [], [], [], [], [], []
+    for xp, gp, op in zip(xe.placements, w_gate.placements, w_out.placements):
+        if xp.is_shard(1):                      # experts split: each rank its own
+            x_pl.append(xp), x_grad.append(xp), i_pl.append(Shard(0)), o_pl.append(Shard(0))
+            w_grad.append(Shard(0)), y_pl.append(xp)
+        elif xp.is_shard():                     # tokens split: the weights whole here
+            x_pl.append(xp), x_grad.append(xp), i_pl.append(Replicate()), o_pl.append(Replicate())
+            w_grad.append(Partial()), y_pl.append(xp)
+        elif gp.is_shard(2) and op.is_shard(1):   # d_ff split inside each expert
+            x_pl.append(Replicate()), x_grad.append(Partial()), i_pl.append(Shard(2)), o_pl.append(Shard(1))
+            w_grad.append(None), y_pl.append(Partial())
+        else:
+            x_pl.append(Replicate()), x_grad.append(Replicate()), i_pl.append(Replicate())
+            o_pl.append(Replicate()), w_grad.append(None), y_pl.append(Replicate())
+
+    def local(t, pl):
+        grad = [g if g is not None else p for g, p in zip(w_grad, pl)]
+        return relayout(t, pl).to_local(grad_placements=grad)
+
+    out = ffn(relayout(xe, x_pl).to_local(grad_placements=x_grad),
+              local(w_gate, i_pl), local(w_in, i_pl), local(w_out, o_pl))
+    return DTensor.from_local(out, xe.device_mesh, y_pl, run_check=False, shape=xe.shape, stride=xe.stride())
+
+
+def _expert_layout(xe: torch.Tensor, w_gate: torch.Tensor, weight_gather: bool) -> torch.Tensor:
+    """The dispatched tokens ``xe`` (G, E, C, D) laid out as the reference
+    lays them out: with ``weight_gather`` pinned to ``(None, "model",
+    "data", None)``; otherwise E takes the expert stack's own split (llama4:
+    'data'), and every other mesh dimension keeps xe's split of the
+    groups.  A plain tensor is returned as it is."""
+    if weight_gather:
+        return constrain(xe, None, "model", "data", None)
+    if not (_is_dtensor(xe) and _is_dtensor(w_gate)):
+        return xe
+    from torch.distributed.tensor import Shard
+
+    pl = [Shard(1) if wp.is_shard(0) else xp for wp, xp in zip(w_gate.placements, xe.placements)]
+    return relayout(xe, pl)
 
 
 def moe_ffn(
@@ -211,8 +345,11 @@ def moe_ffn(
     xg = x.reshape(G, gs, D)
 
     if G > scan_group_chunk and G % scan_group_chunk == 0:
-        parts = [_moe_groups(xc, p, k, C, weight_gather) for xc in xg.split(scan_group_chunk)]
-        y = torch.cat([part[0] for part in parts])
+        # On groups split over the batch axes each chunk takes its groups
+        # from every rank's own (``split_rows``), so that no chunk is
+        # gathered; the groups are independent, so y is the same.
+        parts = [_moe_groups(xc, p, k, C, weight_gather) for xc in split_rows(xg, G // scan_group_chunk)]
+        y = join_rows([part[0] for part in parts])
         frac_tokens = torch.stack([part[1] for part in parts]).mean(0)
         frac_probs = torch.stack([part[2] for part in parts]).mean(0)
     else:

@@ -81,9 +81,30 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
+def _low_rank(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``tanh(x a) b``.  On DTensors it runs on each rank's batch rows
+    with ``b``'s column split kept, the output split as those: DTensor's
+    own propagation may split the flattened (batch x sequence) rows of the
+    narrow product over 'model', which it then cannot unflatten."""
+    if not _is_dtensor(x):
+        return torch.tanh(x @ a) @ b
+    from torch.distributed.tensor import Replicate, Shard
+
+    xp, bp, yp = [], [], []
+    for p, q in zip(x.placements, b.placements):
+        if p.is_shard(0):
+            xp.append(Shard(0)), bp.append(Replicate()), yp.append(Shard(0))
+        elif q.is_shard(1):
+            xp.append(Replicate()), bp.append(Shard(1)), yp.append(Shard(2))
+        else:
+            xp.append(Replicate()), bp.append(Replicate()), yp.append(Replicate())
+    rep = [Replicate()] * len(xp)
+    return on_shards(lambda x, a, b: torch.tanh(x @ a) @ b, [x, a, b], [xp, rep, bp], [yp])
+
+
 def _decays(xw: torch.Tensor, p: Params, n_heads: int, head_dim: int) -> torch.Tensor:
     """Data-dependent per-channel decay w_t in (0, 1), float32."""
-    lora = torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
+    lora = _low_rank(xw, p["w_lora_a"], p["w_lora_b"])
     w = p["w0"][None, None] + unflatten(lora, -1, (n_heads, head_dim)).float()
     return torch.exp(-torch.exp(w))
 

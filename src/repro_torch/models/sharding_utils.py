@@ -10,10 +10,12 @@ Spec tokens: 'batch' expands to the mesh's batch axes (('pod','data') on
 the multi-pod mesh), 'batch_full' to every mesh axis (FSDP), 'model'
 passes through, None replicates.
 
-``replica`` serves the few ops whose output shape depends on the data
-(the MoE dispatch's ``nonzero``), which DTensor cannot propagate: they run
-on the full local value of a DTensor, and their results are lifted back
-as replicated DTensors.
+``relayout`` redistributes, moving a split from one dimension to
+another on a host mesh by one all-to-all, as DTensor does on a card
+mesh (on a host mesh DTensor gathers the whole dimension).
+``vocab_parallel_embedding`` and ``vocab_parallel_nll`` look up
+and score a vocabulary split over 'model' on each rank's shard, and
+``write_position`` writes a decode position into the shard that holds it.
 
 ``on_shards`` hands a hand kernel the local shards of its DTensor operands
 (the kernels take plain tensors): each operand is first laid out with its
@@ -85,27 +87,63 @@ def constrain(x: torch.Tensor, *spec_tokens) -> torch.Tensor:
     # A dimension of one element stays whole (replicated), which leaves it
     # free to be squeezed by a reshape.
     pl = [Replicate() if p.is_shard() and x.shape[p.dim] == 1 else p for p in placements(spec, x.device_mesh)]
-    return x.redistribute(x.device_mesh, pl)
+    return relayout(x, pl)
 
 
-def replica(x: torch.Tensor) -> tuple[torch.Tensor, Callable[[torch.Tensor], torch.Tensor]]:
-    """``(value, lift)``: a DTensor's full value as a plain tensor and a
-    function that makes a tensor computed from it a replicated DTensor on
-    the same mesh; for a plain tensor, ``x`` itself and the identity."""
-    if not _is_dtensor(x):
-        return x, lambda t: t
-    return x.full_tensor(), lifter(x)
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` of equal blocks along dim 0 over one mesh
+    dimension; its gradient is the same exchange of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        from torch.distributed import _functional_collectives as funcol
+
+        ctx.group = (mesh, dim)
+        out = funcol.all_to_all_single(t.contiguous(), None, None, (mesh, dim))
+        return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllToAll.apply(grad, *ctx.group), None, None
 
 
-def lifter(x: torch.Tensor) -> Callable[[torch.Tensor], torch.Tensor]:
-    """A function that makes a plain tensor a replicated DTensor on a
-    DTensor ``x``'s mesh; for a plain ``x``, the identity."""
-    if not _is_dtensor(x):
-        return lambda t: t
-    from torch.distributed.tensor import DTensor, Replicate
+def _move_shard(x: torch.Tensor, mesh_dim: int, dst: int) -> torch.Tensor:
+    """DTensor ``x``, split along ``src`` over mesh dimension ``mesh_dim``
+    and along no other dimension there, split along ``dst`` instead, by
+    one all-to-all.  (DTensor's own move falls back to an all-gather of
+    the whole dimension on a host mesh.)"""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    mesh = x.device_mesh
-    return lambda t: DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim)
+    mesh, n = x.device_mesh, x.device_mesh.size(mesh_dim)
+    src = x.placements[mesh_dim].dim % x.ndim
+    # A pending sum's gradient is every rank's whole one (replicated).
+    local = x.to_local(grad_placements=[Replicate() if p.is_partial() else p for p in x.placements])
+    blocks = torch.stack(local.chunk(n, dim=dst))                 # (n, ...): block j goes to rank j
+    got = _AllToAll.apply(blocks, mesh, mesh_dim)                 # block j came from rank j
+    out = torch.cat(got.unbind(0), dim=src)
+    pl = [Shard(dst) if i == mesh_dim else p for i, p in enumerate(x.placements)]
+    return DTensor.from_local(out, mesh, pl, run_check=False, shape=x.shape, stride=x.stride())
+
+
+def relayout(x: torch.Tensor, pl) -> torch.Tensor:
+    """DTensor ``x`` under placements ``pl``, by ``redistribute``.  On a
+    host mesh, where DTensor moves a split from one dimension to another
+    by an all-gather of the whole dimension, such a move is one all-to-all
+    instead, as DTensor issues it on a card mesh (where both dimensions
+    divide evenly and no other mesh dimension splits them): the dry run,
+    which counts on a host mesh, then counts the collective a card mesh
+    runs."""
+    pl = list(pl)
+    if x.device_mesh.device_type == "cpu":
+        for i, (cur, want) in enumerate(zip(x.placements, pl)):
+            if not (cur.is_shard() and want.is_shard() and cur.dim % x.ndim != want.dim % x.ndim):
+                continue
+            a, b, n = cur.dim % x.ndim, want.dim % x.ndim, x.device_mesh.size(i)
+            alone = all(not (p.is_shard() and p.dim % x.ndim in (a, b))
+                        for j, p in enumerate(x.placements) if j != i)
+            if alone and x.shape[a] % n == 0 and x.shape[b] % n == 0:
+                x = _move_shard(x, i, b)
+    return x if list(x.placements) == pl else x.redistribute(x.device_mesh, pl)
 
 
 def is_fake(x: torch.Tensor) -> bool:
@@ -158,12 +196,18 @@ def on_shards(kernel: Callable, operands: list, placements: list, out_placements
     DTensors under ``out_placements`` (one per output), of the global
     shapes that those shards make up.  A plain tensor operand counts as
     replicated and None passes as None.  With no DTensor operand this is
-    ``kernel(*operands)``."""
+    ``kernel(*operands)``.
+
+    An operand replicated over a mesh dimension of several ranks that
+    splits an output feeds different outputs on each of its ranks, so its
+    local gradient is that rank's addend: it is marked a pending sum
+    there (``Partial``), which autograd all-reduces."""
     mesh = next((t.device_mesh for t in operands if _is_dtensor(t)), None)
     if mesh is None:
         return kernel(*operands)
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import DTensor, Partial, Replicate
 
+    split = {i for pl in out_placements for i, p in enumerate(pl) if p.is_shard() and mesh.size(i) > 1}
     local = []
     for t, pl in zip(operands, placements, strict=True):
         if t is None:
@@ -171,7 +215,8 @@ def on_shards(kernel: Callable, operands: list, placements: list, out_placements
             continue
         if not _is_dtensor(t):
             t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-        local.append(t.redistribute(mesh, pl).to_local().contiguous())
+        grad = [Partial() if i in split and p.is_replicate() else p for i, p in enumerate(pl)]
+        local.append(t.redistribute(mesh, pl).to_local(grad_placements=grad).contiguous())
     out = kernel(*local)
     outs = out if isinstance(out, tuple) else (out,)
     lifted = []
@@ -186,14 +231,21 @@ def on_shards(kernel: Callable, operands: list, placements: list, out_placements
     return tuple(lifted) if isinstance(out, tuple) else lifted[0]
 
 
+def _rows_split(x: torch.Tensor, n: int) -> bool:
+    """Whether ``x`` is a DTensor whose leading axis is split, in shards
+    that each cut into ``n`` equal slices."""
+    return (_is_dtensor(x) and any(p.is_shard(0) for p in x.placements)
+            and x.to_local().shape[0] % n == 0)
+
+
 def split_rows(x: torch.Tensor, n: int) -> list[torch.Tensor]:
     """``x`` as ``n`` consecutive slices of its leading axis.  For a DTensor
     sharded along that axis, each rank's shard is cut into ``n`` slices and
     slice i of every shard makes up piece i (under ``x``'s placements):
     each piece stays sharded, where slicing the global axis would gather
     it.  The pieces then hold other rows than the global slices, in the
-    same numbers."""
-    if not (_is_dtensor(x) and any(p.is_shard(0) for p in x.placements)):
+    same numbers; ``join_rows`` puts them back."""
+    if not _rows_split(x, n):
         m = x.shape[0] // n
         return [x[i * m:(i + 1) * m] for i in range(n)]
     from torch.distributed.tensor import DTensor
@@ -204,6 +256,21 @@ def split_rows(x: torch.Tensor, n: int) -> list[torch.Tensor]:
     return [DTensor.from_local(local[i * m:(i + 1) * m], x.device_mesh, x.placements, run_check=False,
                                shape=torch.Size(shape), stride=_contiguous_stride(shape))
             for i in range(n)]
+
+
+def join_rows(parts: list[torch.Tensor]) -> torch.Tensor:
+    """The inverse of ``split_rows``: the pieces' rows put back in their
+    order, each rank's shard the concatenation of its pieces' shards
+    (``torch.cat`` for plain tensors or pieces whose leading axis is
+    whole)."""
+    x = parts[0]
+    if not (_is_dtensor(x) and any(p.is_shard(0) for p in x.placements)):
+        return torch.cat(parts)
+    from torch.distributed.tensor import DTensor
+
+    shape = (sum(p.shape[0] for p in parts), *x.shape[1:])
+    return DTensor.from_local(torch.cat([p.to_local() for p in parts]), x.device_mesh, x.placements,
+                              run_check=False, shape=torch.Size(shape), stride=_contiguous_stride(shape))
 
 
 def unflatten(x: torch.Tensor, dim: int, sizes: tuple[int, ...]) -> torch.Tensor:
@@ -223,24 +290,140 @@ def unflatten(x: torch.Tensor, dim: int, sizes: tuple[int, ...]) -> torch.Tensor
     return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
 
 
-def match(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """``x`` laid out as the DTensor ``like`` (the source of an in-place op
-    on ``like``, which DTensor would otherwise leave inconsistent); ``x``
-    itself when either is a plain tensor."""
-    if _is_dtensor(x) and _is_dtensor(like) and x.placements != like.placements:
-        return x.redistribute(like.device_mesh, like.placements)
-    return x
+def _all_reduce(t: torch.Tensor, op: str, mesh, dim: int) -> torch.Tensor:
+    """``t`` (a plain tensor) reduced with ``op`` over mesh dimension
+    ``dim``, by a functional collective (the kind DTensor issues)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    out = funcol.all_reduce(t, op, (mesh, dim))
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) else out
 
 
-def whole_dim0(x: torch.Tensor) -> torch.Tensor:
-    """A DTensor ``x`` with its leading dimension gathered whole and its
-    other shards kept; ``x`` itself when that dimension is not sharded or
-    ``x`` is a plain tensor."""
-    if not (_is_dtensor(x) and any(p.is_shard(0) for p in x.placements)):
-        return x
-    from torch.distributed.tensor import Replicate
+class _SumOverRanks(torch.autograd.Function):
+    """A sum of one addend per rank of a mesh dimension.  Each addend's
+    derivative is one, so every rank's gradient is the sum's own (which is
+    the same on every rank): no collective in the backward pass."""
 
-    return x.redistribute(x.device_mesh, [Replicate() if p.is_shard(0) else p for p in x.placements])
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        return _all_reduce(t, "sum", mesh, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def _vocab_split(table: torch.Tensor, dim: int) -> int | None:
+    """The mesh dimension of several ranks that alone splits ``dim`` of
+    DTensor ``table``, or None."""
+    cut = [i for i, p in enumerate(table.placements) if p.is_shard() and p.dim % table.ndim == dim]
+    return cut[0] if len(cut) == 1 and table.device_mesh.size(cut[0]) > 1 else None
+
+
+def _first_row(n: int, mesh, mesh_dim: int) -> int:
+    """The first of ``n`` rows that this rank holds along a dimension split
+    over ``mesh_dim`` (``torch.chunk``'s split)."""
+    return min(mesh.get_local_rank(mesh_dim) * -(-n // mesh.size(mesh_dim)), n)
+
+
+def write_position(cache: torch.Tensor, pos: int, new: torch.Tensor) -> None:
+    """``cache[:, pos] = new`` in place, for a cache (B, S, ...) and
+    ``new`` (B, ...).  On a DTensor cache split along the sequence the
+    write lands in the shard of the rank that holds ``pos`` (DTensor's own
+    indexing of a split dimension would write into a gathered copy),
+    ``new`` first laid out as the cache's other dimensions are."""
+    if not _is_dtensor(cache):
+        cache[:, pos] = new
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = cache.device_mesh
+    seq = [i for i, p in enumerate(cache.placements) if p.is_shard(1)]
+    if len(seq) > 1:
+        raise NotImplementedError("a cache whose sequence is split over several mesh dimensions")
+    if not _is_dtensor(new):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    pl = [Replicate() if not p.is_shard() or p.dim == 1 else Shard(p.dim - (p.dim > 1))
+          for p in cache.placements]
+    rows = relayout(new, pl).to_local()
+    local = cache._local_tensor
+    lo = _first_row(cache.shape[1], mesh, seq[0]) if seq else 0
+    if lo <= pos < lo + local.shape[1]:
+        local[:, pos - lo] = rows
+
+
+def vocab_parallel_embedding(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` (V, D) at ``tokens`` (B, S).  For a DTensor
+    table whose vocabulary is split over one mesh dimension of several
+    ranks (and nothing else split), each rank looks up the tokens its shard
+    owns, zero elsewhere, and the rows are summed over that mesh dimension,
+    as the reference's GSPMD looks them up: no collective carries the
+    vocabulary, and each rank's gradient is its own shard's.  The rows
+    come back split as the tokens' batch is.  Anything else is
+    ``table[tokens]``."""
+    vd = _vocab_split(table, 0) if _is_dtensor(table) else None
+    if vd is None or any(p.is_shard() and p.dim % 2 != 0 for p in table.placements):
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    rows = [Shard(0) if _is_dtensor(tokens) and p.is_shard(0) else Replicate() for p in
+            (tokens.placements if _is_dtensor(tokens) else [Replicate()] * mesh.ndim)]
+    if not _is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    shape = (*tokens.shape, table.shape[1])
+    tokens = tokens.redistribute(mesh, rows).to_local()
+    # Over a batch axis each rank's gradient holds its own tokens' rows
+    # only: a pending sum there, which autograd all-reduces.
+    grad = [Partial() if r.is_shard() and mesh.size(i) > 1 else p
+            for i, (r, p) in enumerate(zip(rows, table.placements))]
+    local = table.to_local(grad_placements=grad)
+    idx = tokens - _first_row(table.shape[0], mesh, vd)
+    owned = (idx >= 0) & (idx < local.shape[0])
+    picked = local[idx.clamp(0, local.shape[0] - 1)] * owned[..., None].to(local.dtype)
+    out = _SumOverRanks.apply(picked, mesh, vd)
+    return DTensor.from_local(out, mesh, rows, run_check=False, shape=torch.Size(shape), stride=_contiguous_stride(shape))
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor | None:
+    """``-log softmax(logits)[label]`` (B, S) for float32 ``logits`` (B, S, V)
+    that are a DTensor with the vocabulary split over one mesh dimension of
+    several ranks, computed where the reference's GSPMD computes it: on
+    each rank's vocabulary shard.  The shard's maximum, its sum of
+    ``exp(x - max)`` and the label's logit (on the shard that owns the
+    label, zero elsewhere) are all-reduced over that mesh dimension; no
+    collective carries the vocabulary, and autograd gives each rank the
+    gradient of its own (B_local, S, V_local) shard.  The result is a
+    DTensor sharded over the logits' batch shards.  None for any other
+    logits (a plain tensor, a replicated or otherwise split vocabulary):
+    the caller takes the whole-row ``log_softmax``."""
+    if not _is_dtensor(logits):
+        return None
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    vd = _vocab_split(logits, last)
+    if vd is None:
+        return None
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in logits.placements]
+    pl = [Shard(last) if i == vd else p for i, p in enumerate(rows)]
+    if list(logits.placements) != pl:      # a pending sum or a sequence shard: settled first
+        logits = logits.redistribute(mesh, pl)
+    if not _is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    shape = labels.shape
+    labels = labels.redistribute(mesh, rows).to_local()
+    local = logits.to_local()
+    v_local = local.shape[-1]
+    lo = _first_row(logits.shape[last], mesh, vd)
+    with torch.no_grad():
+        m = _all_reduce(local.amax(-1, keepdim=True), "max", mesh, vd)
+    lse = _SumOverRanks.apply((local - m).exp().sum(-1), mesh, vd).log() + m[..., 0]
+    idx = labels - lo
+    owned = (idx >= 0) & (idx < v_local)
+    picked = local.gather(-1, idx.clamp(0, v_local - 1)[..., None])[..., 0] * owned
+    nll = lse - _SumOverRanks.apply(picked, mesh, vd)
+    return DTensor.from_local(nll, mesh, rows, run_check=False, shape=shape, stride=_contiguous_stride(shape))
 
 
 def even(x: torch.Tensor, dims: tuple[int, ...]) -> torch.Tensor:

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import Params, normal
+from repro_torch.models.sharding_utils import is_fake
 
 # Bytes of the (B, chunks, L, L, d_inner) float32 decay tensor that
 # ``selective_scan_chunked`` holds at once (hymba-1.5b: 26 MB per chunk).
@@ -65,6 +66,13 @@ def ssm_param_count(d_model: int, d_inner: int, state: int) -> int:
     )
 
 
+def _scan_step(h, x_t, b_t, c_t, dt_t, A):
+    """One token of the scan: the new state and its output (B, d_inner)."""
+    decay = torch.exp(-dt_t * A)                               # (B, d_inner)
+    h = h * decay[..., None] + (dt_t * x_t)[..., None] * b_t[:, None, :]
+    return h, torch.einsum("bdn,bn->bd", h, c_t)
+
+
 def selective_scan(
     x: torch.Tensor,      # (B, S, d_inner)
     B_t: torch.Tensor,    # (B, S, N)
@@ -74,16 +82,129 @@ def selective_scan(
     h0: torch.Tensor,     # (B, d_inner, N)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sequential selective scan in float32; returns (y (B, S, d_inner),
-    h_final)."""
+    h_final).  On fake tensors (a counted dry run) of more than three
+    tokens it runs ``_counted_scan``, which the counter counts as the loop."""
     dt = F.softplus(dt.float())
     x, B_t, C_t = x.float(), B_t.float(), C_t.float()
     h = h0.float()
+    if is_fake(x) and x.shape[1] > 3:
+        return _counted_scan(x, B_t, C_t, dt, A, h)
     ys = []
-    for t in range(x.shape[1]):
-        decay = torch.exp(-dt[:, t] * A)                       # (B, d_inner)
-        h = h * decay[..., None] + (dt[:, t] * x[:, t])[..., None] * B_t[:, t, None, :]
-        ys.append(torch.einsum("bdn,bn->bd", h, C_t[:, t]))
+    for x_t, b_t, c_t, dt_t in zip(x.unbind(1), B_t.unbind(1), C_t.unbind(1), dt.unbind(1)):
+        h, y = _scan_step(h, x_t, b_t, c_t, dt_t, A)
+        ys.append(y)
     return torch.stack(ys, dim=1), h
+
+
+class _Columns(torch.autograd.Function):
+    """Columns 0, 1 and S-1 of x (B, S, ...), views as ``unbind`` gives
+    them; the gradient is the stack of S columns' gradients with column
+    1's standing for columns 1 .. S-2, which costs what ``unbind``'s
+    backward costs for S columns."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.n = x.shape[1]
+        return x.select(1, 0), x.select(1, 1), x.select(1, -1)
+
+    @staticmethod
+    def backward(ctx, g0, g1, g2):
+        return torch.stack([g0, *[g1] * (ctx.n - 2), g2], dim=1)
+
+
+class _Rows(torch.autograd.Function):
+    """The (B, S, d) output of S step outputs, from the first, one middle
+    one standing for S-2 and the last, allocated whole: a copy of the
+    middle one broadcast over S reads and writes what ``stack`` of S
+    outputs does (the values are fake), and the gradient is ``unbind``'s
+    views, as the loop's."""
+
+    @staticmethod
+    def forward(ctx, n, y0, y1, y2):
+        return y1[:, None].expand(-1, n, *y1.shape[1:]).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        cols = g.unbind(1)
+        return None, cols[0], cols[1], cols[-1]
+
+
+class _Region:
+    """The backward pass's view of the repeated middle step: ``_Open``
+    (after it in the forward pass, so first in the backward pass) opens a
+    region of its multiplicity in the counter, ``_Close`` (before it)
+    closes it.  That brackets exactly the step's backward nodes only
+    because the autograd engine runs the ready nodes of one device in
+    decreasing order of creation, an engine detail and no API: the two
+    raise where that order would break the bracket (a close with no open
+    region, or with another region opened inside it), and
+    ``counter.count`` raises on a region left open."""
+
+    def __init__(self, n: int):
+        self.n, self.depth = n, None
+
+
+class _Close(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, region, h):
+        ctx.region = region
+        return h.view_as(h)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.roofline import counter
+
+        region = ctx.region
+        if region.depth is None or counter.open_regions() != region.depth:
+            raise RuntimeError("the scan's backward region closes out of order: "
+                               "the autograd engine did not run the repeated step's nodes in a bracket")
+        counter.pop_repeats()
+        region.depth = None
+        return None, g
+
+
+class _Open(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, region, h, y):
+        ctx.region = region
+        ctx.set_materialize_grads(False)
+        return h.view_as(h), y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, gh, gy):
+        from repro_torch.roofline import counter
+
+        if ctx.region.depth is not None:
+            raise RuntimeError("the scan's backward region opens twice")
+        counter.push_repeats(ctx.region.n)
+        ctx.region.depth = counter.open_regions()
+        return None, gh, gy
+
+
+def _counted_scan(x, B_t, C_t, dt, A, h):
+    """The sequential scan as the roofline counter should see it, on fake
+    tensors of S > 3 tokens: the first step, one middle step counted S-2
+    times over (``counter.repeated``, and in the backward pass a region of
+    the same multiplicity), and the last step, between the column split
+    and the output stack that the loop has.  Every token's ops are the
+    loop's: FLOPs and bytes equal the loop's on one rank, and a step's
+    backward sees the gradient accumulations the loop's interior steps do
+    (the state's two uses, ``A``'s).  The (B, S, d_inner) output is
+    allocated whole, as the loop's stack (the reference's while loop's
+    buffer) is; the states the middle steps would save for the backward
+    pass are held for one step."""
+    from repro_torch.roofline import counter
+
+    s = x.shape[1]
+    cols = [_Columns.apply(a) for a in (x, B_t, C_t, dt)]
+    h, y0 = _scan_step(h, *(c[0] for c in cols), A)
+    region = _Region(s - 2)
+    h = _Close.apply(region, h)
+    with counter.repeated(s - 2):
+        h, y1 = _scan_step(h, *(c[1] for c in cols), A)
+    h, y1 = _Open.apply(region, h, y1)
+    h, y2 = _scan_step(h, *(c[2] for c in cols), A)
+    return _Rows.apply(s, y0, y1, y2), h
 
 
 def _chunk_states(a: torch.Tensor, u: torch.Tensor, h0: torch.Tensor):

@@ -57,7 +57,13 @@ from repro_torch.models.layers import (
     normal,
     rms_norm,
 )
-from repro_torch.models.sharding_utils import constrain
+from repro_torch.models.sharding_utils import (
+    _is_dtensor,
+    constrain,
+    relayout,
+    vocab_parallel_embedding,
+    vocab_parallel_nll,
+)
 
 DEFAULT_DTYPE = torch.bfloat16
 
@@ -289,7 +295,7 @@ def embed_inputs(
       d_model.
     """
     if cfg.frontend == "vision":
-        tok = params["embed"][batch["tokens"]]
+        tok = vocab_parallel_embedding(params["embed"], batch["tokens"])
         patches = _project(batch["patch_embeds"], params["frontend_proj"]).to(tok.dtype)
         b, n_p, s_text = patches.shape[0], patches.shape[1], tok.shape[1]
         mask = torch.cat([
@@ -300,7 +306,7 @@ def embed_inputs(
     if cfg.frontend == "audio":
         h = _project(batch["frame_embeds"], params["frontend_proj"])
         return constrain(h, _batch_token(cfg), None, None), None
-    return constrain(params["embed"][batch["tokens"]], _batch_token(cfg), None, None), None
+    return constrain(vocab_parallel_embedding(params["embed"], batch["tokens"]), _batch_token(cfg), None, None), None
 
 
 def unembed(cfg: ArchConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
@@ -331,12 +337,16 @@ def forward_loss(
     labels = batch["labels"].long()
     if cfg.frontend == "vision":
         labels = torch.cat([labels.new_zeros((labels.shape[0], cfg.n_patches)), labels], dim=1)
-    logp = torch.log_softmax(logits, dim=-1)
-    # -logp at each label; nll_loss's backward writes into a gradient of
-    # logp's own layout, where gather's would make a new one (on DTensors
-    # a replicated one of the global shape).
-    b, s, v = logp.shape
-    nll = F.nll_loss(logp.reshape(b * s, v), labels.reshape(b * s), reduction="none").reshape(b, s)
+    # Logits split over the vocabulary stay split (each rank reduces its
+    # shard); any other logits take the whole row.
+    nll = vocab_parallel_nll(logits, labels)
+    if nll is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        # -logp at each label; nll_loss's backward writes into a gradient of
+        # logp's own layout, where gather's would make a new one (on
+        # DTensors a replicated one of the global shape).
+        b, s, v = logp.shape
+        nll = F.nll_loss(logp.reshape(b * s, v), labels.reshape(b * s), reduction="none").reshape(b, s)
     if loss_mask is not None:
         nll = nll * loss_mask
         denom = loss_mask.sum().clamp_min(1.0)
@@ -389,7 +399,7 @@ def decode_step(
     if cfg.frontend == "audio":
         h = _project(tokens, params["frontend_proj"])
     else:
-        h = params["embed"][tokens]
+        h = vocab_parallel_embedding(params["embed"], tokens)
     new_caches = []
     for i, (p, cache) in enumerate(zip(params["layers"], caches)):
         x = rms_norm(h, p["ln1"], cfg.norm_eps)
@@ -425,6 +435,36 @@ def decode_step(
     return unembed(cfg, params, h), new_caches
 
 
+def _seed_cache(cfg: ArchConfig, kv: torch.Tensor, size: int, dtype: torch.dtype) -> torch.Tensor:
+    """A cache of ``size`` slots (B, size, KV, hd) holding the prompt's
+    keys or values ``kv`` (B, S, KV, hd) as decode expects them: position t
+    in slot t of a full cache, in slot ``t % size`` of a ring buffer that
+    keeps the last ``size`` positions; empty slots zero.
+
+    On a mesh (a DTensor ``kv``) the cache takes the reference's cache
+    layout (``launch.sharding.cache_shardings``: the batch over the batch
+    axes, the sequence over 'model' where it divides), and the prompt moves
+    into it by one redistribution: no rank holds a whole-sequence cache."""
+    b, s = kv.shape[:2]
+    if not _is_dtensor(kv):
+        cache = kv.new_zeros((b, size, *kv.shape[2:]), dtype=dtype)
+        if s <= size:
+            cache[:, :s] = kv
+        else:
+            slots = torch.arange(s - size, s, device=kv.device) % size
+            cache[:, slots] = kv[:, s - size:]
+        return cache
+    from repro_torch.launch import sharding as shd
+
+    if s < size:
+        kv = F.pad(kv, (0, 0, 0, 0, 0, size - s))
+    elif s > size:
+        kv = torch.roll(kv[:, s - size:], (s - size) % size, dims=1)
+    mesh = kv.device_mesh
+    spec = shd.cache_specs(cfg, mesh, {"k": kv})["k"]
+    return relayout(kv.to(dtype), shd.placements(spec, mesh))
+
+
 def prefill_step(
     cfg: ArchConfig,
     params: Params,
@@ -442,11 +482,10 @@ def prefill_step(
     layers the SSM state and the last normed input (``ssm_prev``).
     """
     h, _ = embed_inputs(cfg, params, batch)
-    b, s, _ = h.shape
+    s = h.shape[1]
     if s > max_len:
         raise ValueError(f"prompt of {s} positions exceeds max_len {max_len}")
     positions = torch.arange(s, device=h.device)
-    hd = cfg.resolved_head_dim
     caches = []
     for i, p in enumerate(params["layers"]):
         x = rms_norm(h, p["ln1"], cfg.norm_eps)
@@ -467,20 +506,10 @@ def prefill_step(
             return_kv=True, **_attn_kw(cfg),
         )
         size = max_len if is_global else min(cfg.window, max_len)
-        # Of k_kv's layout on a mesh (a DTensor's placements), h's dtype.
-        k_c = k_kv.new_zeros((b, size, cfg.n_kv_heads, hd), dtype=h.dtype)
-        v_c = torch.zeros_like(k_c)
-        if is_global or s <= size:
-            k_c[:, :s] = k_kv
-            v_c[:, :s] = v_kv
-        else:
-            slots = torch.arange(s - size, s, device=h.device) % size
-            k_c[:, slots] = k_kv[:, s - size:]
-            v_c[:, slots] = v_kv[:, s - size:]
-        cache = {"k": k_c, "v": v_c}
+        cache = {"k": _seed_cache(cfg, k_kv, size, h.dtype), "v": _seed_cache(cfg, v_kv, size, h.dtype)}
         if cfg.block == "hymba":
             y_ssm, cache["ssm"] = ssm_mod.ssm_forward(x, p["ssm"], chunked=cfg.use_chunked_scan)
-            cache["ssm_prev"] = x[:, -1, :]
+            cache["ssm_prev"] = x[:, -1, :].clone()      # not a view that holds all of x
             y = 0.5 * (y + y_ssm)
         h = h + y
         y2, _ = _ffn(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))

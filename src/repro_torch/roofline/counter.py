@@ -27,10 +27,23 @@ skipped.
   shards on (the caller holds them) until each storage's last tensor is
   freed; ``peak_bytes`` is the most at once during the call.
 
-The step runs once with every layer and microbatch in turn, so the counts
-need no loop multiplicities.  The hand kernels take their fake forms
-(``kernels.build.fake_launch``) on fake tensors: their outputs and
-workspaces, no launch and no plain version.  ``count_step``'s record is the
+The step runs once with every layer and microbatch in turn, so those
+loops need no multiplicities.  A long sequential loop is the exception:
+hymba's token-by-token SSM scan (``models/ssm.py::selective_scan``) runs,
+on fake tensors, one representative step inside ``repeated(n)``, which
+counts its ops n times over (FLOPs, bytes, collectives), as the
+reference's parser multiplies a while body by its ``known_trip_count``;
+the step's backward is counted n times over too.  Each such region (a
+forward or a backward loop) adds one to ``trip_counted_whiles``.  The
+backward region is opened and closed by two autograd nodes around the
+step's own, which brackets exactly the step's backward only because the
+autograd engine runs one device's ready nodes in decreasing order of
+creation: an engine detail, not an API.  The markers raise where the
+bracket breaks, and ``count`` raises on a region still open after the
+step (its backward pass included).  Memory
+is not multiplied: a region's storages are live once.  The hand kernels
+take their fake forms (``kernels.build.fake_launch``) on fake tensors:
+their outputs and workspaces, no launch and no plain version.  ``count_step``'s record is the
 parser's own ``HloCosts``, which ``analyze_compiled`` reads.
 """
 from __future__ import annotations
@@ -48,13 +61,16 @@ from torch.utils.flop_counter import flop_registry
 from repro_torch.roofline.hlo_parse import _COLLECTIVE_KINDS, HloCosts
 from repro_torch.training.tree import leaves_with_paths, tree_unflatten
 
-# Functional collectives (``torch.ops._c10d_functional``) by the HLO kind
-# the parser files them under.
+# Functional collectives (``torch.ops._c10d_functional``), and DTensor's
+# own move of a split between dimensions on a card mesh
+# (``torch.ops._dtensor.shard_dim_alltoall``), by the HLO kind the parser
+# files them under.
 _COLLECTIVES = {
-    "all_reduce": "all-reduce",
-    "all_gather_into_tensor": "all-gather",
-    "reduce_scatter_tensor": "reduce-scatter",
-    "all_to_all_single": "all-to-all",
+    ("_c10d_functional", "all_reduce"): "all-reduce",
+    ("_c10d_functional", "all_gather_into_tensor"): "all-gather",
+    ("_c10d_functional", "reduce_scatter_tensor"): "reduce-scatter",
+    ("_c10d_functional", "all_to_all_single"): "all-to-all",
+    ("_dtensor", "shard_dim_alltoall"): "all-to-all",
 }
 
 
@@ -95,6 +111,42 @@ def _dtensor_internal() -> str | None:
             return "indices"
         frame = frame.f_back
     return None
+
+
+# The multiplicity of the ops now dispatched (the innermost ``repeated``
+# region's, times its enclosing ones'), and the regions entered.
+_REPEATS: list[int] = [1]
+_REGIONS = [0]
+
+
+def push_repeats(n: int) -> None:
+    """Open a region whose ops count ``n`` times over (within any open
+    region's multiplicity); ``pop_repeats`` closes it.  For a region that
+    one context manager cannot span, as a loop's backward pass."""
+    _REPEATS.append(_REPEATS[-1] * n)
+    _REGIONS[0] += 1
+
+
+def open_regions() -> int:
+    """The number of regions of repeated ops now open."""
+    return len(_REPEATS) - 1
+
+
+def pop_repeats() -> None:
+    if len(_REPEATS) == 1:
+        raise RuntimeError("no region of repeated ops is open")
+    _REPEATS.pop()
+
+
+@contextlib.contextmanager
+def repeated(n: int):
+    """Within: every op counted ``n`` times over, the way the reference's
+    parser counts a while loop's body by its trip count."""
+    push_repeats(n)
+    try:
+        yield
+    finally:
+        pop_repeats()
 
 
 class _Counter(TorchDispatchMode):
@@ -139,17 +191,17 @@ class _Counter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if internal == "metadata":
             return out
+        times = _REPEATS[-1]
         namespace, _, name = func.name().partition("::")
-        if namespace == "_c10d_functional":
-            if name in _COLLECTIVES:
-                kind = _COLLECTIVES[name]
-                self.collective_bytes[kind] += _tensor_bytes(out)
-                self.collective_ops[kind] += 1
-        elif not func.is_view and _tensors(out):     # a query (device, item) moves nothing
-            self.bytes += _tensor_bytes(list(args)) + _tensor_bytes(dict(kwargs)) + _tensor_bytes(out)
+        kind = _COLLECTIVES.get((namespace, name.split(".")[0]))
+        if kind is not None:
+            self.collective_bytes[kind] += times * _tensor_bytes(out)
+            self.collective_ops[kind] += times
+        elif namespace != "_c10d_functional" and not func.is_view and _tensors(out):     # a query (device, item) moves nothing
+            self.bytes += times * (_tensor_bytes(list(args)) + _tensor_bytes(dict(kwargs)) + _tensor_bytes(out))
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
-            self.flops += formula(*args, **kwargs, out_val=out)
+            self.flops += times * formula(*args, **kwargs, out_val=out)
         for t in _tensors(out):
             self.hold(t)
         return out
@@ -241,6 +293,8 @@ def count(bundle) -> tuple[HloCosts, dict]:
 
     placed = placed_args(bundle)
     args = (*placed[:3], 0) if bundle.shape.kind == "decode" else placed
+    del _REPEATS[1:]
+    _REGIONS[0] = 0
     sharded = _n_ranks(bundle.mesh) > 1
     counter = _Counter(sharded)
     for t in _tensors(placed):
@@ -257,6 +311,8 @@ def count(bundle) -> tuple[HloCosts, dict]:
         stack.enter_context(fake_mode(bundle.args))
         stack.enter_context(counter)
         out = bundle.fn(*args)
+    if len(_REPEATS) != 1:
+        raise RuntimeError(f"{len(_REPEATS) - 1} region(s) of repeated ops left open")
     seen, out_bytes = set(), 0
     for t in _tensors(out):
         storage = t.untyped_storage()
@@ -269,7 +325,7 @@ def count(bundle) -> tuple[HloCosts, dict]:
         bytes_accessed=float(counter.bytes),
         collective_bytes={**coll, "total": sum(coll.values())},
         collective_ops=counter.collective_ops,
-        trip_counted_whiles=0,
+        trip_counted_whiles=_REGIONS[0],
     )
     memory = {
         "argument_bytes": arg_bytes,

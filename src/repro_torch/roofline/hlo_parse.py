@@ -157,6 +157,9 @@ class HloCosts:
     bytes_accessed: float              # loop-aware HBM bytes (per device)
     collective_bytes: dict[str, float]
     collective_ops: dict[str, int]
+    # While loops counted by their known trip count; from the port's
+    # counter, the regions it repeated (``counter.repeated``: hymba's
+    # sequential scan, forward and backward).
     trip_counted_whiles: int
 
 

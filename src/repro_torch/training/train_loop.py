@@ -16,12 +16,13 @@ stay usable by the serving paths.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.sharding_utils import split_rows
+from repro_torch.models.sharding_utils import _is_dtensor, relayout, split_rows
 from repro_torch.models.transformer import forward_loss
 from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
 from repro_torch.training.tree import leaves_with_paths, tree_unflatten
@@ -57,6 +58,13 @@ def make_train_step(
     def grad_fn(params, mb):
         flat = [p for _, p in leaves_with_paths(params)]
         live = [p.detach().requires_grad_(True) for p in flat]
+        for x, p in zip(live, flat):
+            if _is_dtensor(p):
+                # A DTensor's gradient can come out a pending sum over the
+                # batch axes of the whole (unsplit) parameter; it is split
+                # as its parameter is (a reduce-scatter) as soon as it is
+                # made, so no rank holds whole gradients.
+                x.register_hook(functools.partial(relayout, pl=p.placements))
         with torch.enable_grad():
             loss, _ = forward_loss(
                 cfg, tree_unflatten(params, live), mb, remat=tcfg.remat,

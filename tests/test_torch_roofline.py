@@ -298,16 +298,21 @@ def test_counts_on_a_model_axis_of_two(fake_group, shape_name):
 
 @pytest.mark.parametrize("shape_name", ["prefill_32k", "train_4k", "decode_32k"])
 @pytest.mark.parametrize("name", list(ARCHS))
-def test_counter_flops_are_flop_counter_modes_on_one_rank(name, shape_name):
+def test_counter_flops_are_flop_counter_modes_on_one_rank(monkeypatch, name, shape_name):
     """On one rank the counter's FLOPs are ``FlopCounterMode``'s over the
     same call (the hand kernels' fake forms included), for every reduced
-    arch and kind of step."""
+    arch and kind of step.  ``FlopCounterMode`` sees hymba's sequential
+    scan run token by token, the counter its repeated step."""
     from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import ssm as ssm_mod
 
     cfg = ARCHS[name].reduced()
     bundle = steps.build_step(cfg, _small(shape_name), ONE)
     args = (*bundle.args[:3], 0) if shape_name == "decode_32k" else bundle.args
     flops = FlopCounterMode(display=False)
+    monkeypatch.setattr(ssm_mod, "is_fake", lambda t: False)
     with steps.fake_mode(bundle.args), flops:
         bundle.fn(*args)
+    monkeypatch.undo()
     assert count_step(bundle).flops == flops.get_total_flops() > 0

@@ -107,9 +107,9 @@ and prints no result line):
    versions per row (the backward also against float64); then for
    qwen1.5-0.5b and gemma3-1b at full width and depth, on a one-device
    mesh (``make_host_mesh``, a one-rank NCCL group), ``build_train`` of
-   ``train_4k`` with the global batch cut from 256 to 16 (16 microbatches
+   ``train_4k`` with the global batch cut from 256 to 8 (8 microbatches
    of 1 x 4096, bf16 parameters, float32 moments, remat with the arch's
-   policy), the roofline counter's FLOPs (one microbatch's bundle under
+   policy; the bundle donates its parameters and moments), the roofline counter's FLOPs (one microbatch's bundle under
    ``FakeTensorMode``, times the microbatches) beside ``model_flops``,
    ``materialize`` (every tensor of the abstract shape and dtype), a
    finite, non-zero gradient on every leaf, one warm and 3 timed steps of
@@ -121,6 +121,20 @@ and prints no result line):
    gradient of ``forward_loss`` in bf16 through the kernels against the
    plain versions' at full width, 1 x 4096 (qwen 2 layers, gemma3-1b 6),
    every leaf within ``PROD_GRAD_TOL`` of its norm;
+7g. the same production step for hymba-1.5b (chunked scan),
+   phi-3-vision-4.2b, musicgen-large, minicpm-2b, nemotron-4-15b,
+   grok-1-314b (bf16 moments, as the whole model's) and rwkv6-7b: 4
+   microbatches of 1 x 4096 (``train_4k`` with the global batch cut to 4),
+   at the most layers whose bundle's predicted peak (``count`` on the
+   card's fake tensors, in two worker processes started after phase 1)
+   stays within 76 GiB, the predicted peak held within [0.85, 1.15] of the
+   measured one; one warm, 2 timed and one profiled step with the
+   readings of 7d; flash_attention and its backward, and wkv6 and its
+   backward, per row at every new shape the steps launched (also against
+   float64); the bf16 gradient at full width, 1 x 4096, 2 layers (grok-1
+   1), kernels against plain versions within ``PROD_GRAD_TOL`` with an
+   MoE's routing replayed from the kernel side; the kernels' times at the
+   new shapes;
 7e. the dry run against the card: qwen1.5-0.5b and gemma3-1b at full
    width and depth on a one-rank mesh (``make_host_mesh``), three bundles
    each: ``train_4k`` at global batch 2 (2 microbatches of 1 x 4096),
@@ -197,7 +211,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -237,6 +251,7 @@ from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd, wkv6_bwd_plain, wkv6_plain 
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.mesh import MeshView  # noqa: E402
+from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch.steps import build_step, build_train, materialize  # noqa: E402
 from repro_torch.roofline.analysis import analyze_compiled  # noqa: E402
 from repro_torch.models import attention, cnn, frontend, moe, rwkv, ssm  # noqa: E402
@@ -1473,6 +1488,7 @@ WKV_BWD_KERNEL_NAMES = WKV_BWD_PRODUCT_KERNELS + ("scan_kernel",)
 # them (demangled), by the block its layers run.
 TRAIN_KERNELS = {
     "transformer": ("flash_attention", r"flash_kernel", "flash_attention_bwd", "|".join(BWD_KERNEL_NAMES)),
+    "hymba": ("flash_attention", r"flash_kernel", "flash_attention_bwd", "|".join(BWD_KERNEL_NAMES)),
     "rwkv6": ("wkv6", r"\b(wkv6|chunk)_kernel\b", "wkv6_bwd", r"\b(sums|scan|grads)_kernel\b"),
 }
 
@@ -1642,21 +1658,21 @@ def check_wkv6_bwd(shapes, dtypes, decays="mild", against_f64: bool = False) -> 
 WKV_FWD_CHUNK = 64   # tokens a chunk of wkv6's chunk route (CL in wkv6.cu)
 
 
-def check_wkv6_rows(shape, decays) -> float:
-    """The float32 forward at ``shape`` against its plain version per row of
-    out and of the final state, from a zero and from a random state: each
-    row's error over its norm, floored at GRAD_ROW_FLOOR of the RMS row
-    norm, within GRAD_ROW_TOL, all finite; a planted one-chunk fault (the
-    third chunk's outputs and the final state as if the second and the last
-    chunk's k v^T never reached the state) must exceed that limit.  Also
-    prints the kernel's and the float32 plain version's row errors against
-    the plain version in float64 (a reading).  Returns the largest absolute
-    error."""
-    n, tol, worst = WKV_FWD_CHUNK, GRAD_ROW_TOL[torch.float32], 0.0
+def check_wkv6_rows(shape, decays, dtype=torch.float32) -> float:
+    """The forward with r, k, v in ``dtype`` at ``shape`` against its
+    plain version per row of out and of the final state, from a zero and
+    from a random state: each row's error over its norm, floored at
+    GRAD_ROW_FLOOR of the RMS row norm, within GRAD_ROW_TOL, all finite; a
+    planted one-chunk fault (the third chunk's outputs and the final state
+    as if the second and the last chunk's k v^T never reached the state)
+    must exceed that limit.  Also prints the kernel's and the plain
+    version's (float32 arithmetic) row errors against the plain version in
+    float64 (a reading).  Returns the largest absolute error."""
+    n, tol, worst = WKV_FWD_CHUNK, GRAD_ROW_TOL[dtype], 0.0
     if shape[1] < 4 * n:
         raise ValueError(f"the one-chunk fault needs T >= {4 * n}, got {shape}")
     for i, with_state in enumerate((False, True)):
-        args = wkv_operands(shape, torch.float32, seed=i, with_state=with_state, decays=decays)
+        args = wkv_operands(shape, dtype, seed=i, with_state=with_state, decays=decays)
         got = wkv6(*args)
         torch.cuda.synchronize()
         want = wkv6_plain(*args)
@@ -1677,7 +1693,7 @@ def check_wkv6_rows(shape, decays) -> float:
         plain = [grad_row_err(a, b, f) for a, b, f in zip(want, exact, floors64)]
         ok = finite and max(errs) <= tol
         print(
-            f"  wkv6 r,k,v float32 (B,T,H,hd)={shape} {wkv_route(torch.float32, shape[3])} {decays} decays, "
+            f"  wkv6 r,k,v {str(dtype)[6:]} (B,T,H,hd)={shape} {wkv_route(dtype, shape[3])} {decays} decays, "
             f"{'random' if with_state else 'zero'} state: row_rel_err out={errs[0]:.3e} state={errs[1]:.3e} "
             f"tol={tol} max_abs_err={abs_err:.3e} finite={finite} one-chunk fault out={fault[0]:.3e} "
             f"state={fault[1]:.3e} {'ok' if ok else 'MISMATCH'}\n"
@@ -1780,14 +1796,24 @@ def plain_kernels():
         attention.causal_attention, rwkv.wkv6 = flash, recur
 
 
+# Leaves that no loss reads: the audio frontend embeds frames and never
+# reads the token table (tests/test_torch_forward_loss.py excepts it too).
+UNREAD_LEAVES = {"musicgen-large": ("['embed']",)}
+
+
 def param_grads(cfg, params, batch) -> tuple[float, list[tuple[str, torch.Tensor]]]:
-    """forward_loss and the gradient of every parameter leaf (autograd.grad
-    raises if any leaf gets none)."""
+    """forward_loss and the gradient of every parameter leaf that the loss
+    reads; raises if any other leaf (UNREAD_LEAVES) gets none, or one of
+    those gets one."""
     flat = leaves_with_paths(params)
     live = [p.detach().requires_grad_(True) for _, p in flat]
     loss, _ = tf.forward_loss(cfg, tree_unflatten(params, live), batch)
-    grads = torch.autograd.grad(loss, live)
-    return float(loss.detach()), [(path, g) for (path, _), g in zip(flat, grads)]
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    unread = [path for (path, _), g in zip(flat, grads) if g is None]
+    if unread != list(UNREAD_LEAVES.get(cfg.name, ())):
+        raise AssertionError(f"{cfg.name}: leaves without a gradient {unread}, "
+                             f"expected {list(UNREAD_LEAVES.get(cfg.name, ()))}")
+    return float(loss.detach()), [(path, g) for (path, _), g in zip(flat, grads) if g is not None]
 
 
 def phase_train_path(name: str, calls: Counter) -> dict:
@@ -2122,11 +2148,11 @@ def phase_wkv_train_times(calls: Counter, step_kernel_ms: dict[str, float]) -> t
 # bfloat16 on one card: qwen1.5-0.5b and gemma3-1b at full width and depth
 # --------------------------------------------------------------------------
 PROD_ARCHS = ("qwen1.5-0.5b", "gemma3-1b")
-# INPUT_SHAPES["train_4k"] (256 x 4096) with the global batch cut to 16.  On
-# one device train_config_for makes one microbatch per sequence: 16
+# INPUT_SHAPES["train_4k"] (256 x 4096) with the global batch cut to 8.  On
+# one device train_config_for makes one microbatch per sequence: 8
 # microbatches of 1 x 4096 a step, each the work of train_4k's microbatch
 # on one batch shard; only the number accumulated is smaller.
-PROD_SHAPE = dataclasses.replace(INPUT_SHAPES["train_4k"], global_batch=16)
+PROD_SHAPE = dataclasses.replace(INPUT_SHAPES["train_4k"], global_batch=8)
 PROD_TIMED = 3
 # The path's attention calls (B, S, H, KV, hd, window), bfloat16: qwen's,
 # and gemma3-1b's windowed and global layers.
@@ -2148,43 +2174,89 @@ PROD_GRAD_TOL = 8 * 2.0**-8
 PRODUCT_KERNELS = re.compile(r"gemm|cutlass|xmma|nvjet|cublas", re.IGNORECASE)
 
 
-def phase_prod_train(name: str, mesh, calls: Counter) -> dict:
+@contextlib.contextmanager
+def full_depth_moments(full):
+    """``steps.train_config_for`` giving every bundle built inside the
+    moments' type that it gives ``full``, the uncut model: the reference
+    keeps bfloat16 moments above BIG_MODEL_PARAMS parameters, which a
+    depth-cut config would fall below.  ``build_train`` looks the function
+    up in its module at every call."""
+    orig = steps_mod.train_config_for
+
+    def for_full(cfg, shape, mesh):
+        tcfg = orig(cfg, shape, mesh)
+        moments = orig(full, shape, mesh).optimizer.moments_dtype
+        return dataclasses.replace(tcfg, optimizer=dataclasses.replace(tcfg.optimizer, moments_dtype=moments))
+
+    steps_mod.train_config_for = for_full
+    try:
+        yield
+    finally:
+        steps_mod.train_config_for = orig
+
+
+def dtypes(tree) -> str:
+    """The types of ``tree``'s leaves, by the number of elements they hold."""
+    n = Counter()
+    for _, t in leaves_with_paths(tree):
+        n[str(t.dtype)[6:]] += t.numel()
+    return ", ".join(f"{k} {v / 1e9:.3f} B" for k, v in n.most_common())
+
+
+def phase_prod_train(name: str, mesh, calls: Counter, cfg=None, shape=PROD_SHAPE, timed: int = PROD_TIMED,
+                     plan=None) -> dict:
     """The reference's production train step of ``name`` through the
-    port's bundle: ``build_train`` on a one-device mesh, ``materialize``,
-    then the bundle's ``fn``: one warm and PROD_TIMED timed steps and one
-    under the profiler; returns the path's launches and the step's
-    readings."""
-    cfg = ARCHS[name]
+    port's bundle: ``build_train`` on a one-device mesh (of ``cfg``, by
+    default the whole model; a depth-cut one keeps the whole model's
+    moments, ``full_depth_moments``), ``materialize``, then the bundle's
+    ``fn``: one warm and ``timed`` timed steps and one under the profiler;
+    returns the path's launches and the step's readings.  ``plan`` is the
+    bundle's count (``plan_depth``): its FLOPs are the step's, and its
+    predicted peak is printed beside the measured one; without it the
+    counter runs on one microbatch's bundle."""
+    full = ARCHS[name]
+    cfg = cfg or full
     t0 = time.perf_counter()
-    bundle = build_train(cfg, PROD_SHAPE, mesh)
+    with full_depth_moments(full):
+        bundle = build_train(cfg, shape, mesh)
     tcfg = bundle.train_config
     got = (tcfg.n_microbatches, tcfg.optimizer.moments_dtype, tcfg.remat, tcfg.remat_policy)
-    want = (PROD_SHAPE.global_batch, torch.float32, True, cfg.remat_policy)
-    print(f"{name}: {bundle.description}; n_microbatches, moments, remat, policy = {got}; "
-          f"reduced: global batch {INPUT_SHAPES['train_4k'].global_batch} -> {PROD_SHAPE.global_batch}, "
-          f"{PROD_SHAPE.global_batch} microbatches of 1 x {PROD_SHAPE.seq_len}")
+    want = (shape.global_batch, steps_mod.train_config_for(full, shape, mesh).optimizer.moments_dtype, True,
+            cfg.remat_policy)
+    full_shape = INPUT_SHAPES["train_4k"]
+    depth = "full depth" if cfg.n_layers == full.n_layers else f"{cfg.n_layers} of {full.n_layers} layers"
+    print(f"{name}: {bundle.description}; n_microbatches, moments, remat, policy = {got}; {depth}; "
+          f"reduced: global batch {full_shape.global_batch} -> {shape.global_batch}, "
+          f"{shape.global_batch} microbatches of 1 x {shape.seq_len}")
     assert got == want, (got, want)
 
-    # The counter on one microbatch's bundle (global batch 1): the step's
-    # products are its microbatches' (the accumulation and AdamW have none).
-    t = time.perf_counter()
-    one = count_step(build_train(cfg, dataclasses.replace(PROD_SHAPE, global_batch=1), mesh))
-    counted = one.flops * tcfg.n_microbatches
-    mf = model_flops(cfg, PROD_SHAPE)
-    print(f"  counter (FakeTensorMode, host, {time.perf_counter() - t:.2f} s): {one.flops:.6e} FLOPs and "
-          f"{one.bytes_accessed:.6e} bytes a microbatch; {counted:.6e} FLOPs a step; model_flops {mf:.6e} "
-          f"(useful ratio {mf / counted:.4f})")
+    if plan is None:
+        # The counter on one microbatch's bundle (global batch 1): the
+        # step's products are its microbatches' (the accumulation and AdamW
+        # have none).
+        t = time.perf_counter()
+        one = count_step(build_train(cfg, dataclasses.replace(shape, global_batch=1), mesh))
+        counted = one.flops * tcfg.n_microbatches
+        print(f"  counter (FakeTensorMode, host, {time.perf_counter() - t:.2f} s): {one.flops:.6e} FLOPs and "
+              f"{one.bytes_accessed:.6e} bytes a microbatch; {counted:.6e} FLOPs a step")
+    else:
+        counted = plan[0].flops
+    mf = model_flops(cfg, shape)
+    print(f"  {counted:.6e} FLOPs a step counted; model_flops {mf:.6e} (useful ratio {mf / counted:.4f})")
 
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     params, opt, batch = materialize(bundle, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
     n_leaves = len(leaves_with_paths((params, opt, batch)))
     print(f"  materialize: {n_leaves} tensors of the bundle's abstract shapes and dtypes "
-          f"(parameters {params['embed'].dtype}, moments {opt['m']['embed'].dtype}); "
+          f"(parameters {dtypes(params)}, moments {dtypes(opt['m'])}); "
           f"{tf.count_params(cfg) / 1e9:.3f} B parameters, {cfg.n_layers} layers; {time.perf_counter() - t0:.2f} s")
     micro = {k: a[:1] for k, a in batch.items()}
     loss, grads = param_grads(cfg, params, micro)
     bad = [path for path, g in grads if not (bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0))]
-    print(f"  gradient of forward_loss on one microbatch (bf16): loss {loss:.4f}, {len(grads)} leaves, "
-          f"{len(grads) - len(bad)} finite and non-zero")
+    unread = UNREAD_LEAVES.get(name, ())
+    print(f"  gradient of forward_loss on one microbatch (bf16): loss {loss:.4f}, {len(grads)} leaves read"
+          f"{f' (unread: {list(unread)})' if unread else ''}, {len(grads) - len(bad)} finite and non-zero")
     if bad or not math.isfinite(loss):
         raise AssertionError(f"{name}: leaves without a finite, non-zero gradient: {bad[:8]}")
     del grads
@@ -2194,7 +2266,7 @@ def phase_prod_train(name: str, mesh, calls: Counter) -> dict:
         k["wrapper"].launches = 0
     step_ms = []
     with recording_kernel_calls(calls), recording_bwd_calls(calls):
-        for i in range(PROD_TIMED + 1):
+        for i in range(timed + 1):
             torch.cuda.synchronize()
             t = time.perf_counter()
             params, opt, metrics = bundle.fn(params, opt, batch)
@@ -2205,22 +2277,33 @@ def phase_prod_train(name: str, mesh, calls: Counter) -> dict:
             if not (math.isfinite(loss) and math.isfinite(gnorm)):
                 raise AssertionError(f"{name}: non-finite loss or grad_norm at step {i}")
     launches = launch_counts()
-    steps = PROD_TIMED + 1
+    steps = timed + 1
+    fwd_name, fwd_re, bwd_name, bwd_re = TRAIN_KERNELS[cfg.block]
     want = {k["name"]: 0 for k in KERNELS}
-    want["flash_attention"] = 2 * cfg.n_layers * tcfg.n_microbatches * steps
-    want["flash_attention_bwd"] = cfg.n_layers * tcfg.n_microbatches * steps
+    want[fwd_name] = 2 * cfg.n_layers * tcfg.n_microbatches * steps
+    want[bwd_name] = cfg.n_layers * tcfg.n_microbatches * steps
     print(f"  launches over {steps} steps: {launches} (want {want}: two forwards a layer and microbatch under remat)")
     assert launches == want, (launches, want)
+    measured = torch.cuda.max_memory_allocated() - base
     peak = torch.cuda.max_memory_allocated() / 2**30
+    plan_line = {}
+    if plan is not None:
+        predicted = plan[1]["peak_bytes"]
+        plan_line = {"predicted_peak_gib": predicted / 2**30, "measured_peak_gib": measured / 2**30,
+                     "peak_ratio": predicted / measured}
+        print(f"  peak: predicted {predicted / 2**30:.3f} GiB (the bundle's count), measured {measured / 2**30:.3f} "
+              f"GiB (max_memory_allocated over materialize and the steps), ratio {predicted / measured:.4f}")
+        if not DRYRUN_PEAK_RATIO[0] <= predicted / measured <= DRYRUN_PEAK_RATIO[1]:
+            raise AssertionError(f"{name}: predicted peak outside {DRYRUN_PEAK_RATIO} of the measured one")
     med = float(np.median(step_ms))
-    tokens = PROD_SHAPE.global_batch * PROD_SHAPE.seq_len
+    tokens = shape.global_batch * shape.seq_len
     reading = device_breakdown("one train step", lambda: bundle.fn(params, opt, batch), host_ops=False)
     shares = {}
     if reading is not None:
         busy, wall, kernels = reading
         products = sum(t for t, _, key in kernels if PRODUCT_KERNELS.search(key))
-        fwd = [(t, n) for t, n, key in kernels if re.search(TRAIN_KERNELS["transformer"][1], key)]
-        bwd = [(t, n) for t, n, key in kernels if re.search(TRAIN_KERNELS["transformer"][3], key)]
+        fwd = [(t, n) for t, n, key in kernels if re.search(fwd_re, key)]
+        bwd = [(t, n) for t, n, key in kernels if re.search(bwd_re, key)]
         fwd_ms, fwd_n = sum(t for t, _ in fwd), sum(n for _, n in fwd)
         bwd_ms = sum(t for t, _ in bwd)
         n_bwd = cfg.n_layers * tcfg.n_microbatches
@@ -2228,27 +2311,208 @@ def phase_prod_train(name: str, mesh, calls: Counter) -> dict:
             "device_busy_share": busy / wall,
             "device_busy_share_of_step": busy / med,
             "product_share": products / busy,
-            "flash_attention_share": fwd_ms / busy,
-            "flash_attention_ms_per_call": fwd_ms / max(fwd_n, 1),
-            "flash_attention_bwd_share": bwd_ms / busy,
-            "flash_attention_bwd_ms_per_call": bwd_ms / n_bwd,
+            f"{fwd_name}_share": fwd_ms / busy,
+            f"{fwd_name}_ms_per_call": fwd_ms / max(fwd_n, 1),
+            f"{bwd_name}_share": bwd_ms / busy,
+            f"{bwd_name}_ms_per_call": bwd_ms / n_bwd,
         }
         print(f"    device busy {busy:.3f} ms a step is {busy / med:.2%} of the unprofiled step's {med:.3f} ms")
-        print(f"    product kernels {products:.3f} ms ({products / busy:.2%}); flash_attention {fwd_ms:.3f} ms "
+        print(f"    product kernels {products:.3f} ms ({products / busy:.2%}); {fwd_name} {fwd_ms:.3f} ms "
               f"({fwd_ms / busy:.2%}, {fwd_n} kernels, {fwd_ms / max(fwd_n, 1):.4f} ms each); "
-              f"flash_attention_bwd {bwd_ms:.3f} ms ({bwd_ms / busy:.2%}, {bwd_ms / n_bwd:.4f} ms a call)")
+              f"{bwd_name} {bwd_ms:.3f} ms ({bwd_ms / busy:.2%}, {bwd_ms / n_bwd:.4f} ms a call); {card_line()}")
     mfu = mf / (med / 1e3) / H100_SXM.peak_flops_bf16
     print(
-        f"  warm: train step {med:.3f} ms (median of {PROD_TIMED}; {', '.join(f'{t:.3f}' for t in step_ms)}), "
+        f"  warm: train step {med:.3f} ms (median of {timed}; {', '.join(f'{t:.3f}' for t in step_ms)}), "
         f"{tokens / med * 1e3:.1f} tokens/s, peak memory {peak:.2f} GiB; model-FLOPs utilization {mfu:.4%} "
         f"of {H100_SXM.peak_flops_bf16 / 1e12:.1f} TFLOP/s bf16 on {card_line()}; {time.perf_counter() - t0:.2f} s"
     )
-    del params, opt, batch
+    del params, opt, batch, bundle
     torch.cuda.empty_cache()
-    return {"launches": launches, "step_ms": med, "tokens_per_s": tokens / med * 1e3, "peak_gib": peak,
+    return {"launches": launches, "layers": cfg.n_layers, "moments": str(got[1])[6:], "step_ms": med,
+            "tokens_per_s": tokens / med * 1e3, "peak_gib": peak, **plan_line,
             "model_flops": mf, "counted_flops": counted, "mfu_bf16": mfu, "card": card_line(),
-            "reduced": f"global batch {INPUT_SHAPES['train_4k'].global_batch} -> {PROD_SHAPE.global_batch}",
+            "reduced": f"global batch {full_shape.global_batch} -> {shape.global_batch}"
+                       + ("" if cfg.n_layers == full.n_layers else f", {cfg.n_layers} of {full.n_layers} layers"),
             **shares}
+
+
+# --------------------------------------------------------------------------
+# Phase 7g: the reference's production train step in bfloat16 for the
+# families that had only served on the card, and rwkv6-7b in bfloat16
+# --------------------------------------------------------------------------
+PROD_FAMILIES = ("hymba-1.5b", "phi-3-vision-4.2b", "musicgen-large", "minicpm-2b", "nemotron-4-15b",
+                 "grok-1-314b", "rwkv6-7b")
+# hymba-1.5b with the reference's --opt scan (launch/dryrun.py's
+# OPT_OVERRIDES), as the zoo phase serves it.
+PROD_FAMILY_CFG = {"hymba-1.5b": ZOO["hymba-1.5b"]}
+# train_4k's microbatch of 1 x 4096 with the global batch cut from 256 to
+# 4: 4 microbatches a step on one device; one warm step, PROD_FAMILY_TIMED
+# timed ones and one under the profiler.
+PROD_FAMILY_SHAPE = dataclasses.replace(INPUT_SHAPES["train_4k"], global_batch=4)
+PROD_FAMILY_TIMED = 2
+# Depth: the most layers whose bundle's predicted peak (the port's own
+# count on the card's fake tensors) stays within this, of the card's 80 GB.
+PROD_PEAK_LIMIT = 76 * 2**30
+# The gradient check's depth: 2 layers (hymba's first is global, its
+# second windowed), grok-1 at 1 (one layer is 6.5 B parameters).
+PROD_FAMILY_CHECK_LAYERS = {name: 2 for name in PROD_FAMILIES} | {"grok-1-314b": 1}
+
+
+def plan_depth(name: str, full, shape, mesh) -> tuple[int, dict, float | None]:
+    """The most layers of ``full`` (at most all of them) whose train bundle
+    at ``shape`` has a predicted peak (``count`` on the card's fake
+    tensors, no launch) within PROD_PEAK_LIMIT; 0 when one layer's is past
+    it.  Counts at 1 and 2 layers, then at the depth that a straight line
+    through the two farthest counted depths from 2 up gives, until the
+    next depth is counted past the limit or that line puts it there.
+    Returns (layers, {layers: (costs, memory)} of every depth counted, the
+    line's peak in bytes for one more layer, or None)."""
+    plans = {}
+
+    def peak(n):
+        if n not in plans:
+            t = time.perf_counter()
+            with full_depth_moments(ARCHS[name]):
+                bundle = build_train(dataclasses.replace(full, n_layers=n), shape, mesh)
+            assert leaves_with_paths(bundle.args)[0][1].device.type == "cuda"
+            before = launch_counts()
+            plans[n] = count(bundle)
+            assert launch_counts() == before, f"{name}: a kernel launched during the fake run"
+            memory = plans[n][1]
+            print(f"  plan at {n} layers: predicted peak {memory['peak_bytes'] / 2**30:.3f} GiB (arguments "
+                  f"{memory['argument_bytes'] / 2**30:.3f}, outputs {memory['output_bytes'] / 2**30:.3f}), "
+                  f"moments {bundle.train_config.optimizer.moments_dtype}; fake run {time.perf_counter() - t:.2f} s")
+        return plans[n][1]["peak_bytes"]
+
+    def line(n):
+        pts = sorted(m for m in plans if m >= 2) or [1]
+        a, b = (pts[0], pts[-1]) if len(pts) > 1 else (1, 2)
+        return peak(b) + (peak(b) - peak(a)) / (b - a) * (n - b)
+
+    total = full.n_layers
+    if peak(1) > PROD_PEAK_LIMIT:
+        return 0, plans, None
+    fits, over = 1, total + 1
+    if total > 1:
+        fits, over = (2, over) if peak(2) <= PROD_PEAK_LIMIT else (1, 2)
+    while over - fits > 1 and line(fits + 1) <= PROD_PEAK_LIMIT:
+        step = (line(fits + 1) - line(fits)) or 1.0
+        n = max(fits + 1, min(over - 1, fits + int((PROD_PEAK_LIMIT - peak(fits)) / step)))
+        fits, over = (n, over) if peak(n) <= PROD_PEAK_LIMIT else (fits, n)
+    return fits, plans, (line(fits + 1) if over > fits + 1 else None)
+
+
+def plan_family(name: str) -> dict:
+    """``plan_depth`` of one of PROD_FAMILIES at PROD_FAMILY_SHAPE, in a
+    worker process (``start_plans``): a one-rank fake process group and a
+    mesh on the card, whose bundles' fake tensors are on the card (no
+    memory is taken and nothing launches).  Returns the depth, the counts,
+    the line's next layer, the lines it printed and its seconds."""
+    import io
+
+    from repro_torch.launch.dryrun import dryrun_mesh, start_fake_group
+
+    t = time.perf_counter()
+    started = start_fake_group(1)
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            layers, plans, next_line = plan_depth(name, PROD_FAMILY_CFG.get(name, ARCHS[name]), PROD_FAMILY_SHAPE,
+                                                  dryrun_mesh((1, 1), ("data", "model")))
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+    return {"layers": layers, "plans": plans, "next_line": next_line, "printed": out.getvalue(),
+            "seconds": time.perf_counter() - t}
+
+
+def start_plans() -> tuple[ProcessPoolExecutor, dict]:
+    """Phase 7g's memory plans (``plan_family``), started in two worker
+    processes at the beginning of the run: counting a full-depth bundle is
+    minutes of host work (hymba-1.5b's 32 layers about 80 s), which the
+    workers do while the earlier phases run.  Returns the pool and each
+    family's future."""
+    import multiprocessing
+
+    pool = ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    return pool, {name: pool.submit(plan_family, name) for name in PROD_FAMILIES}
+
+
+def phase_prod_family(name: str, mesh, calls: Counter, planned: dict) -> dict:
+    """Phase 7g for one family: its depth from the port's memory plan
+    (``planned``, from ``plan_family``), then ``phase_prod_train`` of that
+    depth at PROD_FAMILY_SHAPE with the plan's predicted peak beside the
+    measured one.  A family whose one-layer plan is past PROD_PEAK_LIMIT
+    does not run; the record says why."""
+    full = PROD_FAMILY_CFG.get(name, ARCHS[name])
+    t = time.perf_counter()
+    layers, plans, next_line = planned["layers"], planned["plans"], planned["next_line"]
+    print(planned["printed"], end="")
+    counted = {n: plans[n][1]["peak_bytes"] / 2**30 for n in sorted(plans)}
+    nxt = "" if next_line is None else f"; one more layer, on the line through the counts: {next_line / 2**30:.3f} GiB"
+    print(f"{name}: {layers} of {full.n_layers} layers fit within {PROD_PEAK_LIMIT / 2**30:.0f} GiB "
+          f"(predicted peaks by layers counted, GiB: {', '.join(f'{n}: {g:.3f}' for n, g in counted.items())}{nxt}); "
+          f"plan {planned['seconds']:.2f} s in a worker process")
+    if layers == 0:
+        print(f"{name}: NOT RUN: one layer's train bundle is predicted to peak at {counted[1]:.3f} GiB, past "
+              f"{PROD_PEAK_LIMIT / 2**30:.0f} GiB of the card; it waits for a multi-card path")
+        return {"run": False, "predicted_peak_gib_by_layers": counted, "plan_s": planned["seconds"],
+                "card": card_line()}
+    rec = phase_prod_train(name, mesh, calls, dataclasses.replace(full, n_layers=layers), PROD_FAMILY_SHAPE,
+                           PROD_FAMILY_TIMED, plans[layers])
+    return {"run": True, "predicted_peak_gib_by_layers": counted, "plan_s": planned["seconds"],
+            "seconds": time.perf_counter() - t, **rec}
+
+
+def phase_7g(phase, planner: ProcessPoolExecutor, plans: dict) -> tuple[dict, Counter, dict, dict]:
+    """Phase 7g: each of PROD_FAMILIES through ``phase_prod_family`` with
+    its plan (``start_plans``' pool and futures; the pool is shut down
+    once every plan is in), then the kernels against their plain versions
+    per row at every new shape the steps launched, the bf16 gradient check
+    at PROD_FAMILY_CHECK_LAYERS and the kernels' times at the new shapes;
+    ``phase`` runs and times each part.  Returns (each family's record, the
+    kernel calls of all their steps, the gradient checks, the times)."""
+    t0 = time.perf_counter()
+    planned = {name: plans[name].result() for name in PROD_FAMILIES}
+    planner.shutdown()
+    print(f"7g: plans in {time.perf_counter() - t0:.2f} s more")
+    calls = Counter()
+    families = {}
+    mesh = make_host_mesh(1, 1)
+    try:
+        for name in PROD_FAMILIES:
+            families[name] = phase(f"7g: production train path (bf16): {name}", phase_prod_family, name, mesh, calls,
+                                   planned[name])
+    finally:
+        torch.distributed.destroy_process_group()
+    not_run = [name for name, rec in families.items() if not rec["run"]]
+    print("7g kernel calls per step: " + "; ".join(
+        f"{k} {key} {str(dt)[6:]} x{n // (PROD_FAMILY_TIMED + 1)}" for (k, key, dt), n in calls.items()
+    ) + f"; not run (plan past {PROD_PEAK_LIMIT / 2**30:.0f} GiB at one layer): {not_run or 'none'}")
+    flash = [key for key in dict.fromkeys(key for (k, key, _dt) in calls if k == "flash_attention")
+             if key not in PROD_FLASH_SHAPES]
+    recur = list(dict.fromkeys(key for (k, key, _dt) in calls if k == "wkv6"))
+    bf16 = (torch.bfloat16,)
+    phase("7g: kernel vs plain: flash_attention at the further families' shapes, and against float64", check_flash,
+          flash, bf16, True)
+    phase("7g: kernel vs plain: flash_attention_bwd at the further families' shapes, and against float64",
+          check_flash_bwd, flash, bf16, True)
+    phase("7g: kernel vs plain: wkv6 at rwkv6-7b's bf16 train shape", check_wkv6, recur, bf16)
+    for shape in recur:
+        phase("7g: kernel vs plain: wkv6 per row at rwkv6-7b's bf16 train shape, and against float64",
+              check_wkv6_rows, shape, "mild", torch.bfloat16)
+    phase("7g: kernel vs plain: wkv6_bwd at rwkv6-7b's bf16 train shape, and against float64", check_wkv6_bwd,
+          recur, bf16, "mild", True)
+    checks = phase("7g: production train correctness: bf16 gradient, kernels against plain versions",
+                   phase_prod_check, PROD_FAMILIES, PROD_FAMILY_CHECK_LAYERS)
+    times = phase("7g: times: flash_attention and flash_attention_bwd at the further families' shapes",
+                  phase_prod_times, calls, flash, PROD_FAMILY_TIMED + 1)
+    times |= phase("7g: times: wkv6 and wkv6_bwd at rwkv6-7b's bf16 train shape", phase_prod_wkv_times,
+                   calls, PROD_FAMILY_TIMED + 1)
+    plan_s = sum(rec["plan_s"] for rec in families.values())
+    print(f"== phase 7g: {time.perf_counter() - t0:.2f} s, and {plan_s:.2f} s of plans in the worker processes "
+          f"beside the earlier phases; {card_line()}")
+    return families, calls, checks, times
 
 
 # Phase 7e: the bundles whose per-rank plan the dry run predicts, checked
@@ -2367,56 +2631,121 @@ def dryrun_card_bundle(cfg, shape, mesh) -> dict:
             "memory_s": roof["memory_s"], "call_ms": call_ms, "count_s": count_s, "card": card_line()}
 
 
-def phase_prod_check() -> None:
-    """Full width at PROD_CHECK_LAYERS layers, 1 x 4096, bfloat16: the
-    gradient of forward_loss through the kernels against the plain
-    versions' (every leaf within PROD_GRAD_TOL of its norm), and each one's
-    distance from the float32 plain gradient of the same parameters."""
-    for name in PROD_ARCHS:
-        cfg = dataclasses.replace(ARCHS[name], n_layers=PROD_CHECK_LAYERS[name])
+@contextlib.contextmanager
+def moe_routing(record: list | None = None, replay: list | None = None, flips: list | None = None):
+    """``moe.route`` with its choices recorded or replayed.  ``record`` gets
+    each call's (G, gs, E) choice of experts (1.0 where a token chose one),
+    in call order.  With ``replay``, each call takes the recorded choice in
+    place of its own top-k: the gates are this side's router probabilities
+    at the chosen experts, renormalised as ``route`` renormalises them, and
+    the slots (the cumulative count in token order) and the capacity drops
+    follow from the choice; ``flips`` gets, per call, the tokens whose own
+    top-k differs from the recorded one.  ``_moe_groups`` looks the
+    function up in its module at every call."""
+    orig = moe.route
+    fixed_choices = iter(replay or ())
+
+    def route(xg, router, k, C):
+        gates, assigned, keep, slot, probs = orig(xg, router, k, C)
+        if record is not None:
+            record.append(assigned.detach().clone())
+        if replay is None:
+            return gates, assigned, keep, slot, probs
+        fixed = next(fixed_choices)
+        flips.append(int((assigned != fixed).any(-1).sum()))
+        chosen = probs * fixed
+        gates = chosen / chosen.sum(-1, keepdim=True).clamp_min(1e-9)
+        slot = torch.cumsum(fixed, dim=1) - fixed
+        return gates, fixed, (fixed > 0) & (slot < C), slot.long(), probs
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = orig
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+def phase_prod_check(names=PROD_ARCHS, layers=None) -> dict:
+    """Full width at ``layers`` layers a model (PROD_CHECK_LAYERS by
+    default), 1 x 4096, bfloat16: the gradient of forward_loss through the
+    kernels against the plain versions' (every leaf the loss reads within
+    PROD_GRAD_TOL of its norm, each kernel launched twice a layer forward
+    under remat and once backward), and each one's distance from the
+    float32 plain gradient of the same parameters.  An MoE's routing is the
+    kernel side's on both plain sides (``moe_routing``): bfloat16 rounding
+    of the attention flips a token's top-k, and a flipped token takes
+    another expert's weights.  Returns each model's readings."""
+    layers = layers or PROD_CHECK_LAYERS
+    out = {}
+    for name in names:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(PROD_FAMILY_CFG.get(name, ARCHS[name]), n_layers=layers[name])
+        seq = PROD_SHAPE.seq_len
         params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(3), device=DEVICE)
-        batch = next(batches_for_arch(cfg, 1, PROD_SHAPE.seq_len, seed=4, device=DEVICE))
+        batch = next(batches_for_arch(cfg, 1, seq, seed=4, device=DEVICE))
         for k in KERNELS:
             k["wrapper"].launches = 0
-        loss, got = param_grads(cfg, params, batch)
+        choices, flips, flips32 = [], [], []
+        with moe_routing(record=choices):
+            loss, got = param_grads(cfg, params, batch)
         kernel_launches = launch_counts()
-        with plain_kernels():
+        with plain_kernels(), moe_routing(replay=choices, flips=flips):
             plain_loss, want = param_grads(cfg, params, batch)
-            f32_loss, exact = param_grads(cfg, _upcast(params), batch)
         assert launch_counts() == kernel_launches, "the plain check launched a kernel"
-        assert kernel_launches["flash_attention_bwd"] == cfg.n_layers, kernel_launches
-
-        def rel(a, b):
-            return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
-
-        errs = {path: rel(g, w) for (path, g), (_, w) in zip(got, want)}
+        fwd_name, _, bwd_name, _ = TRAIN_KERNELS[cfg.block]
+        expect = {k["name"]: 0 for k in KERNELS} | {fwd_name: 2 * cfg.n_layers, bwd_name: cfg.n_layers}
+        assert kernel_launches == expect, (kernel_launches, expect)
+        errs = {path: _rel(g, w) for (path, g), (_, w) in zip(got, want, strict=True)}
+        # The float32 gradient beside both: the bf16 ones wait on the host.
+        got, want = [(path, g.cpu()) for path, g in got], [(path, w.cpu()) for path, w in want]
+        params32 = _upcast(params)
+        del params
+        with plain_kernels(), moe_routing(replay=choices, flips=flips32):
+            f32_loss, exact = param_grads(cfg, params32, batch)
+        del params32
+        kern32 = {path: _rel(g.to(DEVICE), e) for (path, g), (_, e) in zip(got, exact, strict=True)}
+        plain32 = {path: _rel(w.to(DEVICE), e) for (path, w), (_, e) in zip(want, exact, strict=True)}
         worst = max(errs, key=errs.get)
-        kern32 = max(rel(g, e) for (_, g), (_, e) in zip(got, exact))
-        plain32 = max(rel(w, e) for (_, w), (_, e) in zip(want, exact))
         windows = sorted(set(tf.layer_window_values(cfg)))
-        print(f"  {name}, {cfg.n_layers} layers (windows {windows}), 1 x {PROD_SHAPE.seq_len}, bf16: loss {loss:.6f} "
+        routing = ""
+        if choices:
+            tokens = sum(int(c.shape[0] * c.shape[1]) for c in choices)
+            routing = (f"; routing replayed from the kernel side ({len(choices)} router calls, {tokens} tokens): "
+                       f"without the replay the bf16 plain side would flip {sum(flips)} tokens' choice "
+                       f"(per call {flips}), the float32 side {sum(flips32)} ({flips32})")
+        print(f"  {name}, {cfg.n_layers} layers (windows {windows}), 1 x {seq}, bf16: loss {loss:.6f} "
               f"vs plain {plain_loss:.6f} (float32 plain {f32_loss:.6f}); gradient of {len(errs)} leaves, largest "
               f"error over norm {errs[worst]:.3e} ({worst}), tol {PROD_GRAD_TOL:.3e}; against the float32 plain "
-              f"gradient: kernels {kern32:.3e}, bf16 plain {plain32:.3e}")
+              f"gradient: kernels {max(kern32.values()):.3e}, bf16 plain {max(plain32.values()):.3e}{routing}; "
+              f"launches {kernel_launches}; {time.perf_counter() - t0:.2f} s")
         if errs[worst] > PROD_GRAD_TOL or abs(loss - plain_loss) > PROD_GRAD_TOL * abs(plain_loss):
             raise AssertionError(f"{name}: the kernels' bf16 gradient disagrees with the plain versions'")
-        del params, got, want, exact
-    torch.cuda.empty_cache()
+        out[name] = {"layers": cfg.n_layers, "seq": seq, "worst_leaf": worst, "worst_rel_err": errs[worst],
+                     "kernels_vs_f32": max(kern32.values()), "bf16_plain_vs_f32": max(plain32.values()),
+                     "routing_flips_bf16": sum(flips), "routing_flips_f32": sum(flips32)}
+        del got, want, exact, choices
+        torch.cuda.empty_cache()
+    return out
 
 
 def _upcast(params):
     return tree_unflatten(params, [p.float() for _, p in leaves_with_paths(params)])
 
 
-def phase_prod_times(calls: Counter) -> dict[str, list[dict]]:
+def phase_prod_times(calls: Counter, shapes=PROD_FLASH_SHAPES, steps: int = PROD_TIMED + 1) -> dict[str, list[dict]]:
     """flash_attention and its backward at each bf16 shape of the
     production train path: kernel (eager, graph), plain version, SDPA's
     forward and backward, bounds at the bf16 rate (and the backward's
-    wgmma route beside its own floor, eight products at that rate)."""
+    wgmma route beside its own floor, eight products at that rate).
+    ``calls`` over ``steps`` steps of each model give the calls a step (of
+    every model that makes them)."""
     out = {"flash_attention": [], "flash_attention_bwd": []}
-    steps = PROD_TIMED + 1
     print("times at the bf16 production train shapes (ms per call, CUDA events):")
-    for key in PROD_FLASH_SHAPES:
+    for key in shapes:
         dtype = torch.bfloat16
         n_fwd = calls["flash_attention", key, dtype] // steps
         n_bwd = calls["flash_attention_bwd", key, dtype] // steps
@@ -2452,6 +2781,37 @@ def phase_prod_times(calls: Counter) -> dict[str, list[dict]]:
         out["flash_attention"].append(f)
         out["flash_attention_bwd"].append(b)
         del q, k, v, o, do
+    return out
+
+
+def phase_prod_wkv_times(calls: Counter, steps: int) -> dict[str, list[dict]]:
+    """wkv6 and its backward at each bf16 shape of the production train
+    path: kernel (eager, graph), plain version, bound (no single PyTorch
+    call computes the function)."""
+    out = {"wkv6": [], "wkv6_bwd": []}
+    print("times of wkv6 and wkv6_bwd at the bf16 production train shapes (ms per call, CUDA events):")
+    for key in dict.fromkeys(key for (k, key, dt) in calls if k == "wkv6" and dt == torch.bfloat16):
+        dtype = torch.bfloat16
+        args = wkv_grad_operands(key, dtype, 0, False, "mild")
+        fwd = lambda: wkv6(*args[:6])  # noqa: E731
+        bwd = lambda: wkv6_bwd(*args)  # noqa: E731
+        f_bound, f_by = wkv_bound(key, dtype)
+        b_bound, b_by = wkv_bwd_bound(key, dtype)
+        f = {"shape": list(key), "dtype": "bfloat16", "route": wkv_route(dtype, key[3]),
+             "calls_a_step": calls["wkv6", key, dtype] // steps,
+             "ms": time_ms(fwd, 10, warmup=2), "graph_ms": time_graph_ms(fwd, calls=5, replays=3),
+             "plain_ms": time_ms(lambda: wkv6_plain(*args[:6]), 1, warmup=0), "library_ms": None,
+             "bound_ms": f_bound, "bound_by": f_by}
+        b = {"shape": list(key), "dtype": "bfloat16", "calls_a_step": calls["wkv6_bwd", key, dtype] // steps,
+             "ms": time_ms(bwd, 10, warmup=2), "graph_ms": time_graph_ms(bwd, calls=5, replays=3),
+             "plain_ms": time_ms(lambda: wkv6_bwd_plain(*args), 1, warmup=0), "library_ms": None,
+             "bound_ms": b_bound, "bound_by": b_by}
+        for name, r in (("wkv6", f), ("wkv6_bwd", b)):
+            print(f"  {name} (B,T,H,hd)={key} bf16, {r['calls_a_step']} calls a step: kernel={r['ms']:.6f} "
+                  f"graph={r['graph_ms']:.6f} plain={r['plain_ms']:.6f} library=none bound={r['bound_ms']:.6f} "
+                  f"({r['bound_by']}) graph share={r['bound_ms'] / r['graph_ms']:.4%}; {card_line()}")
+            out[name].append(r)
+        del args
     return out
 
 
@@ -2885,6 +3245,15 @@ def main() -> int:
         return result
 
     kind = phase("device", phase_device)
+    planner, plans = start_plans()
+    try:
+        return run_phases(phase, kind, planner, plans, t_start)
+    finally:
+        planner.shutdown(cancel_futures=True)
+
+
+def run_phases(phase, kind: str, planner: ProcessPoolExecutor, plans: dict, t_start: float) -> int:
+    """Every phase after the device's, in order (``main``)."""
     phase("build", phase_build)
     matmul_hgmma = phase("tensor cores: HGMMA in the block_matmul library", phase_tensor_cores, "block_matmul", "HGMMA")
     hgmma = phase("tensor cores: HGMMA in the flash_attention library", phase_tensor_cores, "flash_attention", "HGMMA",
@@ -3011,6 +3380,11 @@ def main() -> int:
         f"{k} {key} {str(dt)[6:]} x{n // (PROD_TIMED + 1)}" for (k, key, dt), n in prod_calls.items()
     ))
     phase("production train correctness: bf16 gradient, kernels against plain versions", phase_prod_check)
+
+    families, fam_calls, fam_check, fam_times = phase_7g(phase, planner, plans)
+    for name, rec in families.items():
+        if rec["run"]:
+            on_path(f"production train bf16 {name}", rec["launches"])
     dryrun = phase("dry run against the card: predicted per-rank peak and FLOPs", phase_dryrun_card)
     examples = phase("examples on the card: examples/torch_*.py at their default sizes", phase_examples)
     for name, record in examples.items():
@@ -3058,26 +3432,29 @@ def main() -> int:
             **({"sass_hgmma": hgmma, "sass_hmma": fwd_hmma, "registers": fwd_resources["registers"],
                 "smem_bytes": fwd_resources["smem_bytes"],
                 "routes": flash_routes, "train_forward_f32": train_forward,
-                "train_bf16": prod_times["flash_attention"]} if name == "flash_attention" else {}),
+                "train_bf16": prod_times["flash_attention"] + fam_times["flash_attention"]}
+               if name == "flash_attention" else {}),
             **({"sass_hmma": hmma, "routes": wkv_routes, "train_forward_f32": wkv_train_forward,
+                "train_bf16": fam_times["wkv6"],
                 "registers": wkv_resources["registers"], "smem_bytes": wkv_resources["smem_bytes"]}
                if name == "wkv6" else {}),
             **({"shapes": sorted({str(key) for (k2, key, _dt) in train_calls if k2 == name}),
                 "sass_hmma": bwd_hmma, "sass_dmma": bwd_dmma, "sass_hgmma": bwd_hgmma,
                 "registers": bwd_resources["registers"], "smem_bytes": bwd_resources["smem_bytes"],
                 "routes": {f"{str(dt)[6:]} hd {key[4]}": bwd_route(dt, key[4])
-                           for (k2, key, dt) in (*train_calls, *prod_calls) if k2 == name},
-                "train_bf16": prod_times["flash_attention_bwd"]}
+                           for (k2, key, dt) in (*train_calls, *prod_calls, *fam_calls) if k2 == name},
+                "train_bf16": prod_times["flash_attention_bwd"] + fam_times["flash_attention_bwd"]}
                if name == "flash_attention_bwd" else {}),
             **({"shapes": sorted({str(key) for (k2, key, _dt) in train_calls if k2 == name}),
                 "registers": wkv_bwd_resources["registers"], "spills": 0,
-                "smem_bytes": wkv_bwd_resources["smem_bytes"], "sass_hmma": wkv_bwd_hmma}
+                "smem_bytes": wkv_bwd_resources["smem_bytes"], "sass_hmma": wkv_bwd_hmma,
+                "train_bf16": fam_times["wkv6_bwd"]}
                if name == "wkv6_bwd" else {}),
         })
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"torch_ops": torch_ops, "ssm_scans": scans}))
-    print(json.dumps({"train": train, "production_train_bf16": prod, "dryrun_vs_card": dryrun,
-                      "examples": examples}))
+    print(json.dumps({"train": train, "production_train_bf16": prod, "production_train_bf16_families": families,
+                      "production_check_families": fam_check, "dryrun_vs_card": dryrun, "examples": examples}))
     print(json.dumps({"kernels": line}))
     print(json.dumps({
         "ok": True,

@@ -129,7 +129,10 @@ def train_config_for(cfg: ArchConfig, shape: InputShape, mesh) -> TrainConfig:
 
 def build_train(cfg: ArchConfig, shape: InputShape, mesh) -> StepBundle:
     tcfg = train_config_for(cfg, shape, mesh)
-    step = make_train_step(cfg, tcfg)
+    # The parameters and state are donated (``donate_argnums``): as XLA
+    # aliases the reference's donated buffers to its outputs, the step
+    # writes the new values into the tensors it is given.
+    step = make_train_step(cfg, tcfg, donate=True)
 
     device = _fake_device(mesh)
     params_sds = _abstract_params(cfg, device)

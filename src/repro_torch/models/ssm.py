@@ -274,8 +274,9 @@ def selective_scan_chunked(
         diff = lca[:, sl, None, :, :] - lca[:, sl, :, None, :]             # [b, c, s, t, d] = lca_t - lca_s
         w = torch.exp(diff.masked_fill_(~causal[:, :, None], float("-inf")))
         m = torch.einsum("bcsn,bctn->bcst", bc[:, sl], cc[:, sl])
-        w.mul_((m[..., None] * up[:, sl, :, None, :]))
-        y[:, sl] += w.sum(dim=2)
+        # Not in place: exp's backward reads w, and under remat autograd
+        # does not see an in-place change to a saved output.
+        y[:, sl] += (w * (m[..., None] * up[:, sl, :, None, :])).sum(dim=2)
     return y.reshape(b, s, d), h_final
 
 

@@ -11,7 +11,9 @@ The step takes no randomness: the model has no dropout, and the data and
 the initial parameters come from their own seeded generators.  Gradients
 come from ``torch.autograd.grad`` on detached copies of the parameter
 leaves that require grad, so the parameters handed in are never marked and
-stay usable by the serving paths.
+stay usable by the serving paths.  A step made with ``donate`` writes the
+new parameters and moments into the ones it was given (``adamw_update_``),
+as the reference's train bundle donates them to its jitted step.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.sharding_utils import _is_dtensor, relayout, split_rows
 from repro_torch.models.transformer import forward_loss
-from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
+from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update, adamw_update_, flat_slices
 from repro_torch.training.tree import leaves_with_paths, tree_unflatten
 
 
@@ -50,10 +52,13 @@ def _split_micro(batch: dict[str, torch.Tensor], n: int) -> list[dict[str, torch
 
 
 def make_train_step(
-    cfg: ArchConfig, tcfg: TrainConfig
+    cfg: ArchConfig, tcfg: TrainConfig, *, donate: bool = False
 ) -> Callable[..., tuple[Any, Any, dict[str, torch.Tensor]]]:
     """Returns ``train_step(params, opt_state, batch, lr_scale=1.0)`` ->
-    (new params, new optimizer state, {"loss", "grad_norm"})."""
+    (new params, new optimizer state, {"loss", "grad_norm"}).  With
+    ``donate`` the new parameters and moments are the given tensors,
+    updated in place; the microbatches' gradients are summed in place
+    either way."""
 
     def grad_fn(params, mb):
         flat = [p for _, p in leaves_with_paths(params)]
@@ -79,17 +84,24 @@ def make_train_step(
     def train_step(params, opt_state, batch, lr_scale=1.0):
         n = tcfg.n_microbatches
         if n > 1:
-            g_acc, losses = None, []
+            grads, losses = None, []
             for mb in _split_micro(batch, n):
-                loss, grads = grad_fn(params, mb)
-                g_acc = grads if g_acc is None else [a + g for a, g in zip(g_acc, grads)]
+                loss, g = grad_fn(params, mb)
+                if grads is None:
+                    grads = [x.contiguous() for x in g]
+                else:
+                    for a, x in zip(grads, g):
+                        a.add_(x)
                 losses.append(loss)
-            grads = [g / n for g in g_acc]
+                del g   # this microbatch's gradients, before the next one's backward
+            for a in grads:
+                a.div_(n)
             loss = sum(losses) / n
         else:
             loss, grads = grad_fn(params, batch)
-        gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-        new_params, new_opt = adamw_update(
+        gnorm = torch.sqrt(sum(s.float().square().sum() for g in grads for s in flat_slices(g)))
+        update = adamw_update_ if donate else adamw_update
+        new_params, new_opt = update(
             tree_unflatten(params, grads), opt_state, params, tcfg.optimizer, lr_scale
         )
         return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}

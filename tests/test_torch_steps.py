@@ -10,9 +10,9 @@ JAX package's ``launch/steps.py``.
   description and donated arguments are the reference's.
 * ``materialize`` gives tensors of the abstract shapes and dtypes, plain
   on a one-device mesh and DTensors under the placements otherwise.
-* bf16: the gradient of ``forward_loss`` of reduced qwen1.5-0.5b and
-  gemma3-1b in bfloat16 against ``jax.grad`` of the reference's, and
-  AdamW's update of bfloat16 parameters against the reference's.
+* bf16: the gradient of ``forward_loss`` of every reduced arch in
+  bfloat16 against ``jax.grad`` of the reference's, and AdamW's update of
+  bfloat16 parameters against the reference's.
 
 Token ids are the port's ``TOKEN_DTYPE`` (int64) where the reference's are
 int32; the comparison maps one onto the other.
@@ -29,6 +29,7 @@ from torch.distributed.tensor import DTensor
 
 from repro.configs import ARCHS as REF_ARCHS
 from repro.configs import INPUT_SHAPES as REF_SHAPES
+from repro.data import pipeline as ref_pipeline
 from repro.launch import steps as ref_steps
 from repro.launch.mesh import make_host_mesh as ref_make_host_mesh
 from repro.models import transformer as ref_tf
@@ -37,6 +38,7 @@ from repro_torch.configs import ARCHS, INPUT_SHAPES
 from repro_torch.launch import sharding as shd
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import moe as port_moe
 from repro_torch.models.frontend import TOKEN_DTYPE
 from repro_torch.models.transformer import forward_loss, params_from_jax
 from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
@@ -58,6 +60,10 @@ DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.int32: "in
 # margin, at 16 eps), and the two independent errors within twice that.
 BF16_EPS = 2.0**-8
 BF16_GRAD_TOL = 16 * BF16_EPS
+# Leaves the reference's init_params keeps in float32 whatever the default
+# type: the MoE router, RWKV6's decay base and bonus, the SSM's decay and
+# skip.
+FLOAT32_LEAVES = ("['router']", "['w0']", "['u']", "['A_log']", "['D']")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -234,36 +240,105 @@ def _rel(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
 
 
-@pytest.mark.parametrize("name", ["qwen1.5-0.5b", "gemma3-1b"])
-def test_bf16_gradient_equals_the_references(name):
+def _bf16_batch(cfg, ref_cfg):
+    """A seeded batch of 2 x 24 (past gemma3-1b's reduced window): token
+    ids from numpy; for the frontends the reference's ``batches_for_arch``
+    batch, its bfloat16 embeddings carried across through float32."""
+    if cfg.frontend == "none":
+        rng = np.random.default_rng(1)
+        return {k: rng.integers(0, cfg.vocab_size, (2, 24), dtype=np.int32) for k in ("tokens", "labels")}
+    batch = next(ref_pipeline.batches_for_arch(ref_cfg, 2, 24, seed=1))
+    return {k: np.array(a) if np.issubdtype(np.asarray(a).dtype, np.integer) else np.array(a, dtype=np.float32)
+            for k, a in batch.items()}
+
+
+def _recording_top_k(calls: list):
+    """``jax.lax.top_k`` that also hands each call's chosen indices, as the
+    computation runs them (inside scans and remat too), to ``calls``."""
+    top_k = jax.lax.top_k
+
+    def record(x, k):
+        vals, idx = top_k(x, k)
+        jax.debug.callback(lambda i: calls.append(torch.from_numpy(np.array(i)).long()), idx)
+        return vals, idx
+
+    return record
+
+
+def _replayed_route(choices: list):
+    """The port's ``moe.route`` taking each call's top-k experts from
+    ``choices`` in call order: gates are this side's router probabilities
+    at those experts, renormalised as ``route`` renormalises them; slots
+    and drops follow from the choice."""
+    route = port_moe.route
+    it = iter(choices)
+
+    def replay(xg, router, k, C):
+        _, _, _, _, probs = route(xg, router, k, C)
+        fixed = torch.zeros_like(probs).scatter_(-1, next(it).reshape(*probs.shape[:-1], k), 1.0)
+        chosen = probs * fixed
+        slot = torch.cumsum(fixed, dim=1) - fixed
+        return chosen / chosen.sum(-1, keepdim=True).clamp_min(1e-9), fixed, (fixed > 0) & (slot < C), slot.long(), probs
+
+    return replay
+
+
+@pytest.mark.parametrize("name", list(ARCHS))
+def test_bf16_gradient_equals_the_references(monkeypatch, name):
     """Reduced, bfloat16 parameters (the reference's ``init_params`` in its
-    default dtype) and a seeded batch past gemma3-1b's window: each leaf of
-    the port's gradient within BF16_GRAD_TOL of its norm from
-    ``jax.grad`` of the reference's loss, and from the reference's float32
-    gradient of the same parameters."""
+    default dtype) and a seeded batch (``_bf16_batch``): each leaf of the
+    port's gradient within BF16_GRAD_TOL of its norm from ``jax.grad`` of
+    the reference's loss, and from the reference's float32 gradient of the
+    same parameters.  Where the reference's own bf16 gradient of a leaf is
+    farther than BF16_GRAD_TOL from its float32 gradient, the port's may be
+    as far plus BF16_GRAD_TOL: in grok-1 (0.13-0.29 of each leaf's norm)
+    bfloat16 rounding of the router's input flips some tokens' top-k
+    experts against the float32 run, and a flipped token takes another
+    expert's weights.  The port's bf16 run takes the reference's bf16
+    routing (recorded from ``jax.lax.top_k``, replayed through the port's
+    ``moe.route``, without remat so that each layer routes once): their
+    rounding differs, and one token near a tie of llama4's top-1 takes
+    another expert on one side alone.  The audio frontend never reads
+    ``embed``: its gradient is none, the reference's zero."""
     ref_cfg, cfg = REF_ARCHS[name].reduced(), ARCHS[name].reduced()
     ref_params = ref_tf.init_params(ref_cfg, jax.random.PRNGKey(1))
-    assert all(a.dtype == jnp.bfloat16 for a in jax.tree.leaves(ref_params) if a.ndim >= 2)
-    rng = np.random.default_rng(1)
-    batch = {k: rng.integers(0, cfg.vocab_size, (2, 24), dtype=np.int32) for k in ("tokens", "labels")}
-    jbatch = {k: jnp.asarray(a) for k, a in batch.items()}
+    assert all(a.dtype == jnp.bfloat16 for path, a in jax.tree_util.tree_leaves_with_path(ref_params)
+               if a.ndim >= 2 and not jax.tree_util.keystr(path).endswith(FLOAT32_LEAVES))
+    batch = _bf16_batch(cfg, ref_cfg)
+    jbatch = {k: jnp.asarray(a).astype(jnp.bfloat16) if a.dtype == np.float32 else jnp.asarray(a)
+              for k, a in batch.items()}
 
     def ref_grad(p):
         (loss, _), g = jax.value_and_grad(lambda q: ref_tf.forward_loss(ref_cfg, q, jbatch), has_aux=True)(p)
         return float(loss), dict(leaves_with_paths(params_from_jax(cfg, g)))
 
-    ref_loss, want = ref_grad(ref_params)
+    choices = []
+    with monkeypatch.context() as m:
+        m.setattr(jax.lax, "top_k", _recording_top_k(choices))
+        ref_loss, want = ref_grad(ref_params)
     _, exact = ref_grad(jax.tree.map(lambda a: a.astype(jnp.float32), ref_params))
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers)) if cfg.is_moe else 0
+    assert len(choices) >= n_moe
+    monkeypatch.setattr(port_moe, "route", _replayed_route(choices[:n_moe]))
     params = params_from_jax(cfg, ref_params)
     flat = leaves_with_paths(params)
     live = [p.detach().requires_grad_(True) for _, p in flat]
-    loss, _ = forward_loss(cfg, tree_unflatten(params, live), {k: torch.from_numpy(a).long() for k, a in batch.items()})
-    grads = dict(zip([p for p, _ in flat], torch.autograd.grad(loss, live)))
+    tbatch = {k: torch.from_numpy(a).bfloat16() if a.dtype == np.float32 else torch.from_numpy(a).long()
+              for k, a in batch.items()}
+    loss, _ = forward_loss(cfg, tree_unflatten(params, live), tbatch, remat=not cfg.is_moe)
+    grads = dict(zip([p for p, _ in flat], torch.autograd.grad(loss, live, allow_unused=True)))
+    unread = {"['embed']"} if cfg.frontend == "audio" else set()
+    assert {path for path, g in grads.items() if g is None} == unread
     assert float(loss.detach()) == pytest.approx(ref_loss, rel=BF16_EPS)
     for path, g in grads.items():
+        if g is None:
+            assert not bool(want[path].float().abs().max() > 0), path
+            continue
         assert g.dtype == dict(flat)[path].dtype, path
         assert _rel(g, want[path]) <= BF16_GRAD_TOL, (path, _rel(g, want[path]))
-        assert _rel(g, exact[path]) <= BF16_GRAD_TOL, (path, _rel(g, exact[path]))
+        ref_off = _rel(want[path], exact[path])
+        limit = BF16_GRAD_TOL if ref_off <= BF16_GRAD_TOL else ref_off + BF16_GRAD_TOL
+        assert _rel(g, exact[path]) <= limit, (path, _rel(g, exact[path]), ref_off)
 
 
 @pytest.mark.parametrize("moments", ["float32", "bfloat16"])

@@ -54,7 +54,11 @@ and prints no result line):
    frame embeddings, random frames in decode), grok-1-314b (4 of 64
    layers) and llama4-maverick (2 of 48 layers), one model at a time; each
    kernel's launches counted, the shapes it was called at recorded, device
-   time by kernel and the MoE and chunked-scan ranges' share; then each
+   time by kernel and the MoE and chunked-scan ranges' share; then one
+   grok-1 MoE layer (``moe_ffn`` at full width, bf16) captured in a
+   ``torch.cuda.CUDAGraph`` at 1 x 4096 tokens and at the decode batch
+   (capture fails on a host sync), replayed on its tokens and on new ones
+   against the eager call (``MOE_GRAPH_TOL``), with both times; then each
    kernel against its plain version at those shapes (flash_attention with
    its route per shape, bf16 hd 96 on the tensor cores; wkv6 at mild and strong
    decays);
@@ -127,9 +131,10 @@ and prints no result line):
    microbatches of 1 x 4096 (``train_4k`` with the global batch cut to 4),
    at the most layers whose bundle's predicted peak (``count`` on the
    card's fake tensors, in two worker processes started after phase 1)
-   stays within 76 GiB, the predicted peak held within [0.85, 1.15] of the
+   stays within 76 GiB, the predicted peak held within [0.98, 1.02] of the
    measured one; one warm, 2 timed and one profiled step with the
-   readings of 7d; flash_attention and its backward, and wkv6 and its
+   readings of 7d (an MoE's also the ``moe_ffn`` range's share of the
+   profiled step); flash_attention and its backward, and wkv6 and its
    backward, per row at every new shape the steps launched (also against
    float64); the bf16 gradient at full width, 1 x 4096, 2 layers (grok-1
    1), kernels against plain versions within ``PROD_GRAD_TOL`` with an
@@ -144,7 +149,7 @@ and prints no result line):
    then the same bundle for real (``materialize``, one call of ``fn``):
    the predicted ``peak_bytes`` beside the bytes that
    ``torch.cuda.max_memory_allocated`` gained over the call and
-   ``materialize`` (it fails outside [0.85, 1.15]), the counted FLOPs
+   ``materialize`` (it fails outside [0.98, 1.02]), the counted FLOPs
    beside ``count_step`` of the same bundle on fake host tensors (they
    must be equal), and ``compute_s`` and ``memory_s`` beside the call's
    device time (CUDA events);
@@ -1107,7 +1112,7 @@ def profiler_ranges():
             setattr(mod, attr, fn)
 
 
-def device_breakdown(label: str, fn, host_ops: bool = True) -> tuple[float, float, list] | None:
+def device_breakdown(label: str, fn, host_ops: bool = True) -> tuple[float, float, list, dict] | None:
     """Device time by kernel over one call of ``fn`` (torch.profiler), the
     share of the wall time in which the device was busy, and the device
     time of the kernels launched inside each of RANGES.  The profiler's own
@@ -1115,8 +1120,9 @@ def device_breakdown(label: str, fn, host_ops: bool = True) -> tuple[float, floa
     With ``host_ops`` False the profiler records the device alone and RANGES
     are not reported: on a bf16 production train step (some 10^5 host ops)
     that halves the profiler's cost, about 35 s a step.
-    Returns (busy ms, wall ms, [(ms, count, kernel name)]), or None when the
-    profiler saw no device time."""
+    Returns (busy ms, wall ms, [(ms, count, kernel name)], {range: ms of
+    the kernels inside it}), or None when the profiler saw no device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1147,11 +1153,12 @@ def device_breakdown(label: str, fn, host_ops: bool = True) -> tuple[float, floa
     )
     for t, n, key in kernels[:8]:
         print(f"    {t:10.3f} ms {t / busy:8.2%}  x{n:<6} {key[:100]}")
+    ranges = {}
     for e in events:
         if e.key in names and e.device_type == DeviceType.CPU and e.count:
-            t = e.device_time_total / 1e3
+            t = ranges[e.key] = e.device_time_total / 1e3
             print(f"    range {e.key} x{e.count}: kernels inside it {t:.3f} ms, {t / busy:.2%} of the device time")
-    return busy, wall_ms, kernels
+    return busy, wall_ms, kernels, ranges
 
 
 def phase_zoo_path(name: str, calls: Counter) -> dict[str, int]:
@@ -1216,6 +1223,69 @@ def phase_zoo_path(name: str, calls: Counter) -> dict[str, int]:
     del params, batch
     torch.cuda.empty_cache()
     return {k: v for k, v in after_decode.items() if v}
+
+
+# One grok-1 MoE layer captured in a CUDA graph: a train microbatch's
+# tokens and a decode step's, held against the eager call (bfloat16).
+MOE_GRAPH_TOKENS = ((1, 4096), (ZOO_BATCH, 1))
+MOE_GRAPH_TOL = 1e-2
+
+
+def phase_moe_graph() -> dict:
+    """grok-1-314b's ``moe_ffn`` at full width in bfloat16 (8 experts,
+    top-2, its capacity factor), under ``no_grad`` as serving runs it,
+    captured in a ``torch.cuda.CUDAGraph`` at each of MOE_GRAPH_TOKENS.
+    Capture refuses a host sync, so a replay shows that the dispatch waits
+    on nothing the host reads back.  The graph is replayed on the tokens it
+    was captured with and on new ones copied into its input (other
+    routing), each output and aux loss held against the eager call on the
+    same tokens within MOE_GRAPH_TOL of its norm; returns, per size, the
+    errors and the eager and replay times (CUDA events)."""
+    cfg = ZOO["grok-1-314b"]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    p = moe.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, torch.bfloat16, DEVICE)
+    out = {}
+    with torch.no_grad():
+        for b, s in MOE_GRAPH_TOKENS:
+            def tokens():
+                return torch.randn((b, s, cfg.d_model), generator=gen, device=DEVICE).to(torch.bfloat16)
+
+            x = tokens()
+
+            def call():
+                return moe.moe_ffn(x, p, k=cfg.experts_per_token, capacity_factor=cfg.capacity_factor,
+                                   weight_gather=cfg.moe_weight_gather)
+
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    call()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                static = call()
+            errs = []
+            for i in range(2):
+                if i:
+                    x.copy_(tokens())
+                graph.replay()
+                want = call()
+                errs.append(max(_rel(static.y, want.y), _rel(static.aux_loss, want.aux_loss)))
+            eager_ms = time_ms(call, 10, 2)
+            graph_ms = time_ms(graph.replay, 10, 2)
+            key = f"{b} x {s}"
+            out[key] = {"rel_err": errs, "eager_ms": eager_ms, "graph_ms": graph_ms}
+            print(f"  moe_ffn {key} tokens, d_model {cfg.d_model}, {cfg.n_experts} experts, top-{cfg.experts_per_token}: "
+                  f"CUDA graph captured; replay against eager, relative error {errs[0]:.3e} on the captured "
+                  f"tokens, {errs[1]:.3e} on new ones (limit {MOE_GRAPH_TOL}); eager {eager_ms:.3f} ms, "
+                  f"graph replay {graph_ms:.3f} ms a call; {card_line()}")
+            if max(errs) > MOE_GRAPH_TOL:
+                raise AssertionError(f"moe_ffn {key}: the CUDA graph's output disagrees with the eager call")
+            del graph, static, want, x
+    del p
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_zoo_check(name: str) -> None:
@@ -1874,7 +1944,7 @@ def phase_train_path(name: str, calls: Counter) -> dict:
     reading = device_breakdown("one train step", lambda: step(params, opt, batches[-1], 1.0))
     bwd_share, bwd_kernel_ms = None, {}
     if reading is not None:
-        busy, wall, kernels = reading
+        busy, wall, kernels, _ = reading
         bwd = sum(t for t, _, key in kernels if re.search(bwd_re, key))
         fwd = sum(t for t, _, key in kernels if re.search(fwd_re, key))
         bwd_share = bwd / busy
@@ -2297,10 +2367,13 @@ def phase_prod_train(name: str, mesh, calls: Counter, cfg=None, shape=PROD_SHAPE
             raise AssertionError(f"{name}: predicted peak outside {DRYRUN_PEAK_RATIO} of the measured one")
     med = float(np.median(step_ms))
     tokens = shape.global_batch * shape.seq_len
-    reading = device_breakdown("one train step", lambda: bundle.fn(params, opt, batch), host_ops=False)
+    # An MoE's step (one layer here, few host ops) is profiled with its host
+    # ops, for the moe_ffn range: the forward and remat's recompute (the
+    # backward's kernels run outside the range).
+    reading = device_breakdown("one train step", lambda: bundle.fn(params, opt, batch), host_ops=cfg.is_moe)
     shares = {}
     if reading is not None:
-        busy, wall, kernels = reading
+        busy, wall, kernels, ranges = reading
         products = sum(t for t, _, key in kernels if PRODUCT_KERNELS.search(key))
         fwd = [(t, n) for t, n, key in kernels if re.search(fwd_re, key)]
         bwd = [(t, n) for t, n, key in kernels if re.search(bwd_re, key)]
@@ -2315,6 +2388,7 @@ def phase_prod_train(name: str, mesh, calls: Counter, cfg=None, shape=PROD_SHAPE
             f"{fwd_name}_ms_per_call": fwd_ms / max(fwd_n, 1),
             f"{bwd_name}_share": bwd_ms / busy,
             f"{bwd_name}_ms_per_call": bwd_ms / n_bwd,
+            **({"moe_ffn_forward_share": ranges["moe_ffn"] / busy} if "moe_ffn" in ranges else {}),
         }
         print(f"    device busy {busy:.3f} ms a step is {busy / med:.2%} of the unprofiled step's {med:.3f} ms")
         print(f"    product kernels {products:.3f} ms ({products / busy:.2%}); {fwd_name} {fwd_ms:.3f} ms "
@@ -2523,8 +2597,10 @@ DRYRUN_SHAPES = (
     dataclasses.replace(INPUT_SHAPES["prefill_32k"], global_batch=1),
     dataclasses.replace(INPUT_SHAPES["decode_32k"], global_batch=8),
 )
-# The predicted peak over the measured one.
-DRYRUN_PEAK_RATIO = (0.85, 1.15)
+# The predicted peak over the measured one (7e and 7g): the count and the
+# caching allocator's own bytes agree to the allocator's rounding once
+# the plan counts the computation that runs.
+DRYRUN_PEAK_RATIO = (0.98, 1.02)
 
 
 def phase_dryrun_card() -> list[dict]:
@@ -3317,6 +3393,7 @@ def run_phases(phase, kind: str, planner: ProcessPoolExecutor, plans: dict, t_st
         zoo_launches[name] = phase(f"model-zoo path: {name}", phase_zoo_path, name, calls)
         on_path(name, zoo_launches[name])
     print(f"model-zoo launches per path: {zoo_launches}")
+    moe_graph = phase("model-zoo path: grok-1's MoE layer in a CUDA graph", phase_moe_graph)
     print("model-zoo kernel calls per prefill: " + "; ".join(
         f"{k} {key} {str(dt)[6:]} x{n}" for (k, key, dt), n in calls.items()
     ))
@@ -3453,7 +3530,8 @@ def run_phases(phase, kind: str, planner: ProcessPoolExecutor, plans: dict, t_st
         })
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"torch_ops": torch_ops, "ssm_scans": scans}))
-    print(json.dumps({"train": train, "production_train_bf16": prod, "production_train_bf16_families": families,
+    print(json.dumps({"train": train, "moe_cuda_graph": moe_graph, "production_train_bf16": prod,
+                      "production_train_bf16_families": families,
                       "production_check_families": fam_check, "dryrun_vs_card": dryrun, "examples": examples}))
     print(json.dumps({"kernels": line}))
     print(json.dumps({

@@ -10,27 +10,30 @@ past the capacity ``C`` is dropped by that expert.  The experts are SwiGLU
 (``silu(x W_gate) * (x W_in)``, then ``W_out``) whatever the model's dense
 MLP is, as in the reference.
 
-The reference dispatches with dense one-hot einsums over a (G, gs, E, C)
-tensor, which suits the TPU's matrix unit.  Here the dispatch is by index:
-the kept (token, expert) pairs are gathered expert by expert, each expert
-runs its FFN on its own tokens only, and the outputs, times their gates
-rounded to ``x.dtype`` (the reference's ``combine``), are summed per token
-in float32 with ``index_add_`` and rounded once, as the reference's einsum
-accumulates in float32.  Experts that no token reached cost nothing, so a
-decode step reads only the weights of the experts its tokens chose.
+The dispatch is the reference's static slots, on every tensor: plain ones
+on the host or the card, DTensors under a mesh, and fake ones in a counted
+dry run, so that the plan counts the computation the card runs.  Every
+expert takes its whole capacity of C rows a group; each group's (E, C)
+slots are filled by index from the group's own tokens (the reference fills
+them by the one-hot einsum ``gtd,gtec->gecd``); a slot that no kept token
+took holds token 0 with weight 0, which adds nothing, as the reference's
+zero row does through a SwiGLU without bias.  The experts run as batched
+products over their stack (the reference's ``gecd,edf->gecf``), and the
+outputs, times their gates rounded to ``x.dtype``, are summed per token in
+float32 and rounded once (the reference's ``gecd,gtec->gtd``).  Every shape
+is static and nothing waits on the host, so a step holding an MoE can be
+captured in a CUDA graph; the price is that every expert's weights are
+read at every call, a decode step's too, as the reference reads them.
 
-Under a mesh (DTensors) and on fake tensors (a counted dry run, which
-holds no decisions) the dispatch takes the reference's static slots
-instead: every expert takes its whole capacity of C rows a group, each
-group's (E, C) slots are filled by index from the group's own tokens, so
-that no rank gathers another batch shard's tokens, the experts run as
-batched products over their stack, and the combine adds each rank's slots
-and settles the sum in the tokens' layout.  The dispatched tokens ``xe``
-(G, E, C, D) take the reference's layout: pinned to ``(None, "model",
-"data", None)`` with ``weight_gather``, otherwise split over E as the expert
-stack is.  The expert products and their memory are those of the
-reference's full-capacity dispatch; its one-hot dispatch and combine
-products are not counted, since the slots are gathered.
+On DTensors each group's slots are filled on the rank that holds the
+group, so that no rank gathers another batch shard's tokens, and the
+combine adds each rank's slots and settles the sum in the tokens' layout.
+The dispatched tokens ``xe`` (G, E, C, D) take the reference's layout:
+pinned to ``(None, "model", "data", None)`` with ``weight_gather``,
+otherwise split over E as the expert stack is.  The expert products and
+their memory are those of the reference's full-capacity dispatch; its
+one-hot dispatch and combine products are not counted, since the slots are
+gathered.
 """
 from __future__ import annotations
 
@@ -45,7 +48,6 @@ from repro_torch.models.layers import Params, normal
 from repro_torch.models.sharding_utils import (
     _is_dtensor,
     constrain,
-    is_fake,
     join_rows,
     on_shards,
     relayout,
@@ -200,10 +202,9 @@ def _moe_groups(
     C: int,
     weight_gather: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Capacity-bounded dispatch within each group; returns (y (G, gs, D),
-    frac_tokens (E,), frac_probs (E,))."""
-    G, gs, D = xg.shape
-    E = p["router"].shape[-1]
+    """Capacity-bounded dispatch within each group, into the reference's
+    static (G, E, C) slots; returns (y (G, gs, D), frac_tokens (E,),
+    frac_probs (E,))."""
     gates, assigned, keep, slot, probs = route(xg, p["router"], k, C)
     frac = assigned.mean((0, 1)), probs.mean((0, 1))
 
@@ -215,38 +216,11 @@ def _moe_groups(
         w_gate = constrain(w_gate, "model", None, None)
         w_in = constrain(w_in, "model", None, None)
         w_out = constrain(w_out, "model", None, None)
-    if _is_dtensor(xg) or is_fake(xg):
-        # Under a mesh, and on fake tensors (a counted dry run, which holds
-        # no decisions), the reference's static (G, E, C) slots: every
-        # expert takes its whole capacity, each group's slots are filled
-        # from the group's own tokens, and the experts run as batched
-        # products over their stack, as the reference's einsums.
-        xe, w, tok = _dispatch(xg, gates, keep, slot, C)
-        ye = _experts(_expert_layout(xe, w_gate, weight_gather), w_gate, w_in, w_out)
-        if weight_gather:
-            ye = constrain(ye, None, "model", "data", None)
-        return _combine(ye, w, tok, xg), *frac
-
-    # Plain tensors: the kept pairs, expert by expert.
-    xf = xg.reshape(G * gs, D)
-    gates = gates.reshape(G * gs, E)
-    y = torch.zeros_like(xf, dtype=torch.float32)
-    rows, experts = keep.reshape(G * gs, E).nonzero(as_tuple=True)   # token-major
-    order = torch.argsort(experts, stable=True)
-    rows, experts = rows[order], experts[order]
-    counts = torch.bincount(experts, minlength=E).tolist()
-    combine = gates[rows, experts].to(xg.dtype).float()
-    start = 0
-    for e, n in enumerate(counts):
-        if n == 0:
-            continue
-        idx = rows[start : start + n]
-        xe = xf[idx]
-        h = F.silu(xe @ w_gate[e]) * (xe @ w_in[e])
-        ye = h @ w_out[e]
-        y.index_add_(0, idx, ye.float() * combine[start : start + n, None])
-        start += n
-    return y.to(xg.dtype).reshape(G, gs, D), *frac
+    xe, w, tok = _dispatch(xg, gates, keep, slot, C)
+    ye = _experts(_expert_layout(xe, w_gate, weight_gather), w_gate, w_in, w_out)
+    if weight_gather:
+        ye = constrain(ye, None, "model", "data", None)
+    return _combine(ye, w, tok, xg), *frac
 
 
 def _experts(xe: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:

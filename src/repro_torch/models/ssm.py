@@ -141,7 +141,7 @@ class _Region:
     ``counter.count`` raises on a region left open."""
 
     def __init__(self, n: int):
-        self.n, self.depth = n, None
+        self.n, self.depth, self.steps = n, None, None
 
 
 class _Close(torch.autograd.Function):
@@ -158,8 +158,11 @@ class _Close(torch.autograd.Function):
         if region.depth is None or counter.open_regions() != region.depth:
             raise RuntimeError("the scan's backward region closes out of order: "
                                "the autograd engine did not run the repeated step's nodes in a bracket")
+        # g, the gradient the step hands the step before it, is held once:
+        # the backward pass saves no gradient.
+        region.steps.carry(g)
         counter.pop_repeats()
-        region.depth = None
+        region.depth = region.steps = None
         return None, g
 
 
@@ -176,7 +179,7 @@ class _Open(torch.autograd.Function):
 
         if ctx.region.depth is not None:
             raise RuntimeError("the scan's backward region opens twice")
-        counter.push_repeats(ctx.region.n)
+        ctx.region.steps = counter.push_repeats(ctx.region.n)
         ctx.region.depth = counter.open_regions()
         return None, gh, gy
 
@@ -191,8 +194,11 @@ def _counted_scan(x, B_t, C_t, dt, A, h):
     backward sees the gradient accumulations the loop's interior steps do
     (the state's two uses, ``A``'s).  The (B, S, d_inner) output is
     allocated whole, as the loop's stack (the reference's while loop's
-    buffer) is; the states the middle steps would save for the backward
-    pass are held for one step."""
+    buffer) is.  Memory is the loop's too: what the middle step leaves live
+    (the tensors it saves for the backward pass, its output) is charged
+    S-2 times, and its new state S-2 times only where it outlives the last
+    step (saved for the backward pass, not dropped by remat's first
+    forward or by a pass without gradients)."""
     from repro_torch.roofline import counter
 
     s = x.shape[1]
@@ -200,10 +206,12 @@ def _counted_scan(x, B_t, C_t, dt, A, h):
     h, y0 = _scan_step(h, *(c[0] for c in cols), A)
     region = _Region(s - 2)
     h = _Close.apply(region, h)
-    with counter.repeated(s - 2):
+    with counter.repeated(s - 2) as steps:
         h, y1 = _scan_step(h, *(c[1] for c in cols), A)
+        steps.carry(h)
     h, y1 = _Open.apply(region, h, y1)
     h, y2 = _scan_step(h, *(c[2] for c in cols), A)
+    steps.settle()
     return _Rows.apply(s, y0, y1, y2), h
 
 

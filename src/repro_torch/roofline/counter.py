@@ -25,7 +25,10 @@ skipped.
   mesh).
 * Memory: the bytes of every storage live on rank 0, from the arguments'
   shards on (the caller holds them) until each storage's last tensor is
-  freed; ``peak_bytes`` is the most at once during the call.
+  freed; ``peak_bytes`` is the most at once during the call.  A gradient
+  that an autograd formula builds in a fresh zero tensor is charged as on
+  plain tensors, where the formula writes into it in place
+  (``_IN_PLACE_ON_PLAIN``).
 
 The step runs once with every layer and microbatch in turn, so those
 loops need no multiplicities.  A long sequential loop is the exception:
@@ -41,7 +44,11 @@ autograd engine runs one device's ready nodes in decreasing order of
 creation: an engine detail, not an API.  The markers raise where the
 bracket breaks, and ``count`` raises on a region still open after the
 step (its backward pass included).  Memory
-is not multiplied: a region's storages are live once.  The hand kernels
+is charged as the loop holds it: a storage allocated inside a region and
+still live when it closes (a state saved for the backward pass, an output
+the loop collects) stands for every step's copy and is charged n times,
+a temporary freed inside it once, and the state the step hands the next
+one n times only if it outlives that step (``Repeats``).  The hand kernels
 take their fake forms (``kernels.build.fake_launch``) on fake tensors:
 their outputs and workspaces, no launch and no plain version.  ``count_step``'s record is the
 parser's own ``HloCosts``, which ``analyze_compiled`` reads.
@@ -113,18 +120,66 @@ def _dtensor_internal() -> str | None:
     return None
 
 
-# The multiplicity of the ops now dispatched (the innermost ``repeated``
-# region's, times its enclosing ones'), and the regions entered.
-_REPEATS: list[int] = [1]
+# Autograd formulas that build a gradient in a fresh zero tensor write
+# into it in place on plain tensors, and out of place on tensor subclasses
+# or under a dispatch mode (``isTensorSubclassLike``), which fake tensors
+# and this counter both are: ``index_put`` (indexing's backward, an
+# embedding table's), ``scatter_add`` (``gather``'s, the MoE's) and
+# ``scatter`` (``topk``'s, the router's).  The counter charges such an
+# output, inside a backward pass and on a zero tensor that the same pass
+# made, as the run on plain tensors holds it: the zero tensor's bytes,
+# not bytes of its own.
+_IN_PLACE_ON_PLAIN = {torch.ops.aten.index_put, torch.ops.aten.scatter_add, torch.ops.aten.scatter}
+_ZEROS = {torch.ops.aten.zeros, torch.ops.aten.new_zeros, torch.ops.aten.zeros_like}
+
+
+class Repeats:
+    """A region of repeated ops (``repeated``, ``push_repeats``): one
+    representative step of a loop of ``n`` steps.  Its ops count ``n``
+    times over (``times``, within the enclosing regions' multiplicity).  A
+    storage allocated inside it and still live when it closes stands for
+    every step's copy (a state saved for the backward pass, an output the
+    loop collects) and is charged ``n`` times; one freed inside it is a
+    step's temporary, live once at a time in the loop too, and charged
+    once.  The step's ``carry`` (what it hands the next step) is live at
+    the close because the next step has not run yet: it is charged once,
+    and ``n`` times only if ``settle``, called after the step that
+    consumes it, finds it still live (saved for the backward pass)."""
+
+    def __init__(self, n: int, times: int):
+        self.n = n
+        self.times = times
+        self.held: list = []            # (counter, storage key) allocated inside
+        self.carried: set[int] = set()  # storage keys of the carry
+        self.pending: list = []         # (counter, storage key) of carries live at the close
+
+    def carry(self, t: torch.Tensor) -> None:
+        """Mark ``t`` as the step's carry (see the class)."""
+        self.carried.add(t.untyped_storage()._cdata)
+
+    def settle(self) -> None:
+        """Charge ``n`` times each carry that outlived the step consuming
+        it."""
+        for counter, key in self.pending:
+            if counter._carried.pop(key, None) is not None:
+                counter._charge(key, self.n)
+        self.pending = []
+
+
+# The open regions of repeated ops, innermost last, above the unit
+# multiplicity of the ops outside any region; and the regions entered.
+_REPEATS: list[Repeats] = [Repeats(1, 1)]
 _REGIONS = [0]
 
 
-def push_repeats(n: int) -> None:
+def push_repeats(n: int) -> Repeats:
     """Open a region whose ops count ``n`` times over (within any open
     region's multiplicity); ``pop_repeats`` closes it.  For a region that
     one context manager cannot span, as a loop's backward pass."""
-    _REPEATS.append(_REPEATS[-1] * n)
+    region = Repeats(n, _REPEATS[-1].times * n)
+    _REPEATS.append(region)
     _REGIONS[0] += 1
+    return region
 
 
 def open_regions() -> int:
@@ -133,18 +188,34 @@ def open_regions() -> int:
 
 
 def pop_repeats() -> None:
+    """Close the innermost region: each storage allocated in it and still
+    live is charged ``n`` times (the carry once, until ``settle``), and
+    counts as allocated in the enclosing region."""
     if len(_REPEATS) == 1:
         raise RuntimeError("no region of repeated ops is open")
-    _REPEATS.pop()
+    region = _REPEATS.pop()
+    outer = _REPEATS[-1] if len(_REPEATS) > 1 else None
+    for counter, key in dict.fromkeys(region.held):
+        if key not in counter._storages:
+            continue                           # a step's temporary
+        if key in region.carried:
+            counter._carried[key] = region.n
+            region.pending.append((counter, key))
+        else:
+            counter._charge(key, region.n)
+        if outer is not None:
+            outer.held.append((counter, key))
+    region.held = []
 
 
 @contextlib.contextmanager
 def repeated(n: int):
     """Within: every op counted ``n`` times over, the way the reference's
-    parser counts a while loop's body by its trip count."""
-    push_repeats(n)
+    parser counts a while loop's body by its trip count; yields the
+    ``Repeats`` region."""
+    region = push_repeats(n)
     try:
-        yield
+        yield region
     finally:
         pop_repeats()
 
@@ -162,22 +233,40 @@ class _Counter(TorchDispatchMode):
         self.collective_ops = {k: 0 for k in _COLLECTIVE_KINDS}
         self.live = 0
         self.peak = 0
-        self._storages: dict[int, int] = {}
+        self._storages: dict[int, int] = {}     # storage key -> bytes charged
+        self._carried: dict[int, int] = {}      # carries awaiting ``Repeats.settle``
+        self._zeros: set[int] = set()           # zero tensors a backward pass made
 
-    def hold(self, t: torch.Tensor) -> None:
-        """Count ``t``'s storage as live until its last tensor is freed."""
+    def hold(self, t: torch.Tensor, instead_of: int | None = None) -> None:
+        """Count ``t``'s storage as live until its last tensor is freed;
+        with ``instead_of``, a live storage of the same size whose bytes
+        it takes over (see ``_IN_PLACE_ON_PLAIN``)."""
         storage = t.untyped_storage()
         key = storage._cdata
         if key in self._storages:
             return
         n = storage.nbytes()
-        self._storages[key] = n
-        self.live += n
-        self.peak = max(self.peak, self.live)
+        if instead_of is not None and self._storages.get(instead_of) == n:
+            self._storages[key], self._storages[instead_of] = n, 0
+        else:
+            self._storages[key] = n
+            self.live += n
+            self.peak = max(self.peak, self.live)
+        if len(_REPEATS) > 1:
+            _REPEATS[-1].held.append((self, key))
         weakref.finalize(storage, self._free, key)
+
+    def _charge(self, key: int, n: int) -> None:
+        """Charge a live storage ``n`` times what it is charged now."""
+        extra = (n - 1) * self._storages[key]
+        self._storages[key] += extra
+        self.live += extra
+        self.peak = max(self.peak, self.live)
 
     def _free(self, key: int) -> None:
         self.live -= self._storages.pop(key)
+        self._carried.pop(key, None)
+        self._zeros.discard(key)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -191,7 +280,7 @@ class _Counter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if internal == "metadata":
             return out
-        times = _REPEATS[-1]
+        times = _REPEATS[-1].times
         namespace, _, name = func.name().partition("::")
         kind = _COLLECTIVES.get((namespace, name.split(".")[0]))
         if kind is not None:
@@ -202,8 +291,15 @@ class _Counter(TorchDispatchMode):
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
             self.flops += times * formula(*args, **kwargs, out_val=out)
+        in_backward = torch._C._current_autograd_node() is not None
+        instead_of = None
+        if in_backward and func.overloadpacket in _IN_PLACE_ON_PLAIN:
+            key = _local(args[0]).untyped_storage()._cdata
+            instead_of = key if key in self._zeros else None
         for t in _tensors(out):
-            self.hold(t)
+            self.hold(t, instead_of)
+        if in_backward and func.overloadpacket in _ZEROS:
+            self._zeros.update(t.untyped_storage()._cdata for t in _tensors(out))
         return out
 
 

@@ -7,6 +7,7 @@ a token is kept at an expert's slot) and contracts it with the tokens in
 with that einsum observed, and hold the port's kept (token, expert, slot)
 triples equal to it.  Everything runs on the CPU in float32.
 """
+import contextlib
 import itertools
 
 import jax
@@ -14,9 +15,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.models import moe as ref_moe
+from repro_torch.configs import ARCHS
 from repro_torch.models import moe
+from repro_torch.roofline import counter
 
 D, F = 32, 48
 TOL = 1e-5
@@ -140,3 +145,65 @@ def test_weight_gather_is_a_no_op():
     a = moe.moe_ffn(x, tp, k=2)
     b = moe.moe_ffn(x, tp, k=2, weight_gather=True)
     assert torch.equal(a.y, b.y)
+
+
+class _NoHostSync(TorchDispatchMode):
+    """Raises on an op that reads a value back to the host or whose output
+    shape depends on the values."""
+
+    REFUSED = {torch.ops.aten._local_scalar_dense, torch.ops.aten.nonzero, torch.ops.aten.bincount}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket in self.REFUSED:
+            raise AssertionError(f"{func} on the MoE's path")
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("case", ["top1", "top2", "top2-drops", "top1-groups", "top2-chunked-groups"])
+def test_moe_ffn_makes_no_host_sync(case):
+    """On plain tensors, forward and backward, the MoE reads no value back
+    to the host and makes no shape from values: one static path, as a CUDA
+    graph needs."""
+    kw = dict(CASES[case])
+    b, s, n_experts = kw.pop("b"), kw.pop("s"), kw.pop("n_experts")
+    _, tp = _params(n_experts)
+    tp = {n: t.requires_grad_() for n, t in tp.items()}
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((b, s, D), dtype=np.float32)).requires_grad_()
+    with _NoHostSync():
+        out = moe.moe_ffn(x, tp, **kw)
+        loss = out.y.square().mean() + out.aux_loss + out.router_entropy
+        grads = torch.autograd.grad(loss, [x, *tp.values()])
+    assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in grads)
+
+
+def _counted_moe_layer(fake: bool) -> tuple[int, int, int]:
+    """FLOPs, bytes and peak live bytes that the roofline counter sees for
+    one reduced grok-1 MoE layer's forward and backward, on plain CPU
+    tensors or on fake ones."""
+    cfg = ARCHS["grok-1-314b"].reduced()
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg.d_model, cfg.d_ff, cfg.n_experts, torch.float32,
+                     device="cpu")
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 256, cfg.d_model), dtype=np.float32))
+    mode = FakeTensorMode() if fake else contextlib.nullcontext()
+    leaves = [mode.from_tensor(t) if fake else t for t in (x, *p.values())]
+    leaves = [t.requires_grad_() for t in leaves]
+    x, p = leaves[0], dict(zip(p, leaves[1:]))
+    c = counter._Counter(sharded=False)
+    with mode:
+        for t in leaves:
+            c.hold(t)
+        with c:
+            out = moe.moe_ffn(x, p, k=cfg.experts_per_token, capacity_factor=cfg.capacity_factor, group_size=128)
+            loss = out.y.square().mean() + cfg.n_experts * out.aux_loss
+            grads = torch.autograd.grad(loss, leaves)
+    assert len(grads) == len(leaves)
+    return c.flops, c.bytes, c.peak
+
+
+def test_moe_plan_counts_the_path_that_runs():
+    """A reduced grok-1 MoE layer, forward and backward: the counter's
+    FLOPs, bytes and peak on plain CPU tensors equal those on fake tensors
+    (a dry run's), so the plan and the run are one path."""
+    plain, fake = _counted_moe_layer(False), _counted_moe_layer(True)
+    assert plain == fake
+    assert plain[0] > 0 and plain[2] > 0

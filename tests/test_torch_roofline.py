@@ -316,3 +316,26 @@ def test_counter_flops_are_flop_counter_modes_on_one_rank(monkeypatch, name, sha
         bundle.fn(*args)
     monkeypatch.undo()
     assert count_step(bundle).flops == flops.get_total_flops() > 0
+
+
+@pytest.mark.parametrize("gathered", ["index", "gather"])
+def test_counter_charges_a_zero_filled_gradient_as_plain_tensors_hold_it(gathered):
+    """Indexing's backward (``index_put``, an embedding table's) and
+    ``gather``'s (``scatter_add``) write into a fresh zero tensor in place
+    on plain tensors, out of place under the counter's dispatch mode: the
+    counter charges the table's gradient once, not twice."""
+    from repro_torch.roofline import counter
+
+    table = torch.randn(4096, 64, requires_grad=True)
+    idx = torch.randint(0, 4096, (256,))
+    n = table.numel() * table.element_size()
+    c = counter._Counter(False)
+    for t in (table, idx):
+        c.hold(t)
+    base = c.live
+    with c:
+        rows = table[idx] if gathered == "index" else table.gather(0, idx[:, None].expand(-1, 64))
+        (grad,) = torch.autograd.grad(rows.square().sum(), table)
+    assert grad.shape == table.shape
+    small = 8 * rows.numel() * rows.element_size()
+    assert n <= c.peak - base < n + small, (c.peak - base, n)

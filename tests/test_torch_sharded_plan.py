@@ -469,6 +469,48 @@ def test_hymba_scan_counts_as_its_whole_loop(monkeypatch, shape_name):
     assert got_memory["output_bytes"] == want_memory["output_bytes"]
 
 
+@pytest.mark.parametrize("shape_name", ["train_4k", "prefill_32k"])
+def test_hymba_scan_peak_is_its_whole_loops(monkeypatch, shape_name):
+    """Reduced hymba at S = 64: the counted scan's peak holds what the
+    token-by-token loop holds (every step's saved states and outputs), not
+    less and within 1% more."""
+    cfg = ARCHS["hymba-1.5b"].reduced()
+    shape = dataclasses.replace(INPUT_SHAPES[shape_name], seq_len=64, global_batch=2)
+    bundle = steps.build_step(cfg, shape, ONE)
+    _, got = counter.count(bundle)
+    monkeypatch.setattr(ssm_mod, "is_fake", lambda t: False)
+    _, want = counter.count(bundle)
+    assert want["peak_bytes"] <= got["peak_bytes"] <= 1.01 * want["peak_bytes"], (got, want)
+
+
+@pytest.mark.parametrize("kept", [True, False])
+def test_repeated_region_charges_what_it_keeps_n_times(kept):
+    """A storage allocated inside ``repeated(5)`` and kept past it is
+    charged 5 times; one freed inside it once; a carry once, and 5 times
+    only if it outlives ``settle``."""
+    c = counter._Counter(sharded=False)
+    n = 4 * 256                                      # bytes of one tensor below
+    with c:
+        base = c.live
+        with counter.repeated(5) as region:
+            tmp = torch.ones(256)
+            out = tmp * 2
+            carry = out + 1
+            del tmp
+            region.carry(carry)
+            assert c.peak - base == 3 * n
+        assert c.live - base == (5 + 1) * n          # out 5 times, the carry once
+        peak = c.peak
+        if not kept:
+            del carry
+        region.settle()
+        assert c.live - base == (5 + (5 if kept else 0)) * n
+        assert c.peak == (peak if not kept else base + 10 * n)
+        del out
+        assert c.live - base == (5 if kept else 0) * n
+    assert counter.open_regions() == 0
+
+
 def test_scan_region_out_of_order_raises():
     """The backward region's markers refuse a bracket the engine did not
     make: a close with no open region, and a region opened twice."""

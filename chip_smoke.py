@@ -133,8 +133,8 @@ and prints no result line):
    card's fake tensors, in two worker processes started after phase 1)
    stays within 76 GiB, the predicted peak held within [0.98, 1.02] of the
    measured one; one warm, 2 timed and one profiled step with the
-   readings of 7d (an MoE's also the ``moe_ffn`` range's share of the
-   profiled step); flash_attention and its backward, and wkv6 and its
+   readings of 7d (an MoE's also the share of the program's ``moe`` span
+   in the profiled step); flash_attention and its backward, and wkv6 and its
    backward, per row at every new shape the steps launched (also against
    float64); the bf16 gradient at full width, 1 x 4096, 2 layers (grok-1
    1), kernels against plain versions within ``PROD_GRAD_TOL`` with an
@@ -227,6 +227,7 @@ import torch.nn.functional as F  # noqa: E402
 
 import numpy as np  # noqa: E402
 
+from repro_torch import tracing  # noqa: E402
 from repro_torch.configs import ARCHS, INPUT_SHAPES  # noqa: E402
 from repro_torch.configs.paper_models import paper_profile  # noqa: E402
 from repro_torch.core import latency  # noqa: E402
@@ -295,7 +296,8 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 SPLIT_TF32_OPS_PER_S = 495e12 / 3
 SMEM_PER_BLOCK = 232448   # bytes of shared memory one block may use (227 KB)
 
-# Every kernel of the port: its wrapper (which counts launches), plain
+# Every kernel of the port: its wrapper (whose launches the counter
+# ``launches.<wrapper's name>`` of ``repro_torch.tracing`` counts), plain
 # version, source, and the TPU kernel of the JAX package it replaces.
 KERNELS = [
     {
@@ -649,8 +651,7 @@ def phase_main_path() -> tuple[Plan, dict[str, int], dict[str, int]]:
     """Serve the mix on the card; returns the SwapLess plan, each kernel's
     launches on the path and block_matmul's routes there."""
     routes = Counter()
-    for k in KERNELS:
-        k["wrapper"].launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     with recording_matmul_routes(routes):
         plan, done = serve.main([
@@ -661,7 +662,7 @@ def phase_main_path() -> tuple[Plan, dict[str, int], dict[str, int]]:
         print(f"forced split {FORCED_PLAN.partition} cores {FORCED_PLAN.cores}:")
         done_forced = serve.run_requests(models, FORCED_PLAN, K_MAX, REQUESTS, DEVICE)
         serve.report_latencies(MODELS, done_forced)
-    launches = {k["name"]: k["wrapper"].launches for k in KERNELS}
+    launches = launch_counts()
     print(f"main path: {time.perf_counter() - t0:.2f} s, launches {launches}, block_matmul routes {dict(routes)}")
 
     # Every request completed, with finite outputs equal to a host-only
@@ -1052,8 +1053,22 @@ def recording_kernel_calls(calls: Counter):
         attention.causal_attention, rwkv.wkv6 = flash, recur
 
 
+# Each kernel's launch count at the last zero_launches().
+_LAUNCH_ZERO: dict[str, int] = {}
+
+
+def _launches_now() -> dict[str, int]:
+    return {k["name"]: tracing.counter(f"launches.{k['wrapper'].__name__}") for k in KERNELS}
+
+
+def zero_launches() -> None:
+    """Count each kernel's launches from here (``launch_counts``)."""
+    _LAUNCH_ZERO.update(_launches_now())
+
+
 def launch_counts() -> dict[str, int]:
-    return {k["name"]: k["wrapper"].launches for k in KERNELS}
+    """Each kernel's launches since the last ``zero_launches``."""
+    return {name: n - _LAUNCH_ZERO.get(name, 0) for name, n in _launches_now().items()}
 
 
 def serve_prompts(cfg, params, batch, timed: bool):
@@ -1086,50 +1101,69 @@ def serve_prompts(cfg, params, batch, timed: bool):
     return after_prefill, launch_counts(), bool(finite), prefill_ms, decode_ms
 
 
-# Model functions whose device time the profiled prefill reports as a
-# range of its own: (module, attribute).
-RANGES = [(moe, "moe_ffn"), (ssm, "selective_scan_chunked")]
+# The program's spans (``repro_torch.tracing``) whose device time a
+# profile reports: the MoE layer and the SSM scan.
+RANGES = ("moe", "ssm.scan")
 
 
-@contextlib.contextmanager
-def profiler_ranges():
-    """Wrap each of RANGES in a ``torch.profiler.record_function`` of its
-    name; the functions are unchanged otherwise."""
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr in RANGES]
+def span_device_ms(prof, spans) -> dict[str, tuple[int, float]]:
+    """For each span name of RANGES among ``spans``: how many there were,
+    and the device ms of the kernels launched while one was open on the
+    host (a kernel's launch is the CUDA runtime call that the profiler
+    gives its correlation id, recorded with or without the host's ops)."""
+    import bisect
 
-    def ranged(fn, name):
-        def call(*args, **kw):
-            with torch.profiler.record_function(name):
-                return fn(*args, **kw)
-        return call
+    from torch.autograd import DeviceType
 
-    for mod, attr, fn in saved:
-        setattr(mod, attr, ranged(fn, attr))
-    try:
-        yield
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
+    launched, kernels = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if not e.is_user_annotation():
+                kernels.append((e.correlation_id(), e.duration_ns()))
+        elif e.name().startswith("cu"):
+            launched[e.correlation_id()] = e.start_ns()
+    out = {}
+    for name in RANGES:
+        mine = sorted((s.start_ns, s.end_ns) for s in spans if s.name == name)
+        merged: list[list[int]] = []
+        for a, b in mine:
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        starts = [a for a, _ in merged]
+        total = 0
+        for corr, ns in kernels:
+            t = launched.get(corr)
+            i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+            if i >= 0 and t <= merged[i][1]:
+                total += ns
+        if mine:
+            out[name] = (len(mine), total / 1e6)
+    return out
 
 
 def device_breakdown(label: str, fn, host_ops: bool = True) -> tuple[float, float, list, dict] | None:
     """Device time by kernel over one call of ``fn`` (torch.profiler), the
     share of the wall time in which the device was busy, and the device
-    time of the kernels launched inside each of RANGES.  The profiler's own
-    host overhead lengthens the wall time, so that share is a lower bound.
-    With ``host_ops`` False the profiler records the device alone and RANGES
-    are not reported: on a bf16 production train step (some 10^5 host ops)
-    that halves the profiler's cost, about 35 s a step.
+    time of the kernels launched inside each of the program's spans that
+    RANGES names (``span_device_ms``; the spans' own device-side
+    annotations are not kernels).  The profiler's own host overhead
+    lengthens the wall time, so that share is a lower bound.  With
+    ``host_ops`` False the profiler records the device alone (and the
+    runtime calls that launch it, so the spans still resolve): on a bf16
+    production train step (some 10^5 host ops) that halves the profiler's
+    cost, about 35 s a step.
     Returns (busy ms, wall ms, [(ms, count, kernel name)], {range: ms of
     the kernels inside it}), or None when the profiler saw no device
     time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    names = {attr for _, attr in RANGES}
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with profiler_ranges(), profile(activities=activities) as prof:
+    since = time.time_ns()
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1139,7 +1173,7 @@ def device_breakdown(label: str, fn, host_ops: bool = True) -> tuple[float, floa
         (
             (e.self_device_time_total / 1e3, e.count, e.key)
             for e in events
-            if e.device_type == DeviceType.CUDA and e.key not in names
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
         ),
         reverse=True,
     )
@@ -1154,10 +1188,9 @@ def device_breakdown(label: str, fn, host_ops: bool = True) -> tuple[float, floa
     for t, n, key in kernels[:8]:
         print(f"    {t:10.3f} ms {t / busy:8.2%}  x{n:<6} {key[:100]}")
     ranges = {}
-    for e in events:
-        if e.key in names and e.device_type == DeviceType.CPU and e.count:
-            t = ranges[e.key] = e.device_time_total / 1e3
-            print(f"    range {e.key} x{e.count}: kernels inside it {t:.3f} ms, {t / busy:.2%} of the device time")
+    for name, (n, t) in span_device_ms(prof, [s for s in tracing.spans() if s.start_ns >= since]).items():
+        ranges[name] = t
+        print(f"    range {name} x{n}: kernels inside it {t:.3f} ms, {t / busy:.2%} of the device time")
     return busy, wall_ms, kernels, ranges
 
 
@@ -1182,8 +1215,7 @@ def phase_zoo_path(name: str, calls: Counter) -> dict[str, int]:
         + f", init {time.perf_counter() - t0:.2f} s; prompt inputs "
         + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
     )
-    for k in KERNELS:
-        k["wrapper"].launches = 0
+    zero_launches()
     with recording_kernel_calls(calls):
         after_prefill, after_decode, finite, _, _ = serve_prompts(cfg, params, batch, timed=False)
     want = {
@@ -1830,9 +1862,7 @@ def recording_bwd_calls(calls: Counter):
     """Count each (kernel, shape, dtype) the backward pass calls the
     backward wrappers with (``_FlashAttention.backward`` and
     ``_WKV6.backward`` look them up in their modules at every call).  The
-    wrappers are unchanged; while a recorder stands in for one, the
-    wrapper's own ``launches += 1`` lands on the recorder, and is added to
-    the wrapper's count on exit."""
+    wrappers, and their launch counts, are unchanged."""
     flash, recur = fa_mod.causal_attention_bwd, wkv6_mod.wkv6_bwd
 
     def flash_rec(q, k, v, o, do, *, scale, window=0):
@@ -1843,14 +1873,11 @@ def recording_bwd_calls(calls: Counter):
         calls["wkv6_bwd", tuple(r.shape), r.dtype] += 1
         return recur(r, k, v, w, u, state, dout, dfinal)
 
-    flash_rec.launches = wkv_rec.launches = 0
     fa_mod.causal_attention_bwd, wkv6_mod.wkv6_bwd = flash_rec, wkv_rec
     try:
         yield
     finally:
         fa_mod.causal_attention_bwd, wkv6_mod.wkv6_bwd = flash, recur
-        flash.launches += flash_rec.launches
-        recur.launches += wkv_rec.launches
 
 
 @contextlib.contextmanager
@@ -1916,8 +1943,7 @@ def phase_train_path(name: str, calls: Counter) -> dict:
         raise AssertionError(f"{name}: leaves without a finite, non-zero gradient: {bad[:8]}")
     del grads
 
-    for k in KERNELS:
-        k["wrapper"].launches = 0
+    zero_launches()
     step_ms = []
     with recording_kernel_calls(calls), recording_bwd_calls(calls):
         for i, batch in enumerate(batches[: TRAIN_TIMED + 1]):
@@ -1975,8 +2001,7 @@ def phase_train_check() -> None:
         seq = TRAIN_CHECK_SEQ.get(name, TRAIN_SEQ)
         params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(3), device=DEVICE, dtype=torch.float32)
         batch = next(batches_for_arch(cfg, 2, seq, seed=4, device=DEVICE))
-        for k in KERNELS:
-            k["wrapper"].launches = 0
+        zero_launches()
         loss, got = param_grads(cfg, params, batch)
         kernel_launches = launch_counts()
         with plain_kernels():
@@ -2332,8 +2357,7 @@ def phase_prod_train(name: str, mesh, calls: Counter, cfg=None, shape=PROD_SHAPE
     del grads
 
     torch.cuda.reset_peak_memory_stats()
-    for k in KERNELS:
-        k["wrapper"].launches = 0
+    zero_launches()
     step_ms = []
     with recording_kernel_calls(calls), recording_bwd_calls(calls):
         for i in range(timed + 1):
@@ -2368,8 +2392,8 @@ def phase_prod_train(name: str, mesh, calls: Counter, cfg=None, shape=PROD_SHAPE
     med = float(np.median(step_ms))
     tokens = shape.global_batch * shape.seq_len
     # An MoE's step (one layer here, few host ops) is profiled with its host
-    # ops, for the moe_ffn range: the forward and remat's recompute (the
-    # backward's kernels run outside the range).
+    # ops, for the program's moe span: the forward and remat's recompute
+    # (the backward's kernels run outside the span).
     reading = device_breakdown("one train step", lambda: bundle.fn(params, opt, batch), host_ops=cfg.is_moe)
     shares = {}
     if reading is not None:
@@ -2388,7 +2412,7 @@ def phase_prod_train(name: str, mesh, calls: Counter, cfg=None, shape=PROD_SHAPE
             f"{fwd_name}_ms_per_call": fwd_ms / max(fwd_n, 1),
             f"{bwd_name}_share": bwd_ms / busy,
             f"{bwd_name}_ms_per_call": bwd_ms / n_bwd,
-            **({"moe_ffn_forward_share": ranges["moe_ffn"] / busy} if "moe_ffn" in ranges else {}),
+            **({"moe_forward_share": ranges["moe"] / busy} if "moe" in ranges else {}),
         }
         print(f"    device busy {busy:.3f} ms a step is {busy / med:.2%} of the unprofiled step's {med:.3f} ms")
         print(f"    product kernels {products:.3f} ms ({products / busy:.2%}); {fwd_name} {fwd_ms:.3f} ms "
@@ -2640,8 +2664,7 @@ def phase_examples() -> dict:
         spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
         module = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(module)
-        for k in KERNELS:
-            k["wrapper"].launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         result = module.main([])
         torch.cuda.synchronize()
@@ -2763,8 +2786,7 @@ def phase_prod_check(names=PROD_ARCHS, layers=None) -> dict:
         seq = PROD_SHAPE.seq_len
         params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(3), device=DEVICE)
         batch = next(batches_for_arch(cfg, 1, seq, seed=4, device=DEVICE))
-        for k in KERNELS:
-            k["wrapper"].launches = 0
+        zero_launches()
         choices, flips, flips32 = [], [], []
         with moe_routing(record=choices):
             loss, got = param_grads(cfg, params, batch)

@@ -38,7 +38,7 @@ On fake tensors (a counted fake run of a step, ``roofline.counter``) the
 forward and the backward take their fake forms: the checks and allocations
 of the CUDA path, workspaces included, with ``fake_launch``'s op in place of
 the launch, counted at the plain versions' FLOPs.  Neither the kernels nor
-the plain versions run, and the ``launches`` counters stay as they are.
+the plain versions run, and the ``launches.*`` counters stay as they are.
 """
 from __future__ import annotations
 
@@ -48,6 +48,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
@@ -363,7 +364,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, wi
         )
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed with CUDA error {err}")
-    causal_attention.launches += 1
+    tracing.count("launches.causal_attention")
     return out
 
 
@@ -388,7 +389,8 @@ def causal_attention_bwd(
     current stream and raises if it cannot; on CPU tensors it computes
     ``causal_attention_bwd_plain``, and on fake tensors it takes its fake
     form, which allocates what the launch would.
-    ``causal_attention_bwd.launches`` counts the calls that launched them.
+    The counter ``launches.causal_attention_bwd`` counts the calls that
+    launched them.
     """
     build.refuse_dtensors("flash_attention_bwd", q, k, v, o, do)
     _check(q, k, v)
@@ -429,11 +431,8 @@ def causal_attention_bwd(
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed with CUDA error {err}")
-    causal_attention_bwd.launches += 1
+    tracing.count("launches.causal_attention_bwd")
     return dq, dk, dv
-
-
-causal_attention_bwd.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -471,14 +470,11 @@ def causal_attention(
     takes its fake form.  When autograd records
     (grad mode on and an input requiring grad) the call goes through
     ``_FlashAttention``, whose backward is ``causal_attention_bwd``.
-    ``causal_attention.launches`` counts the launches of either forward
-    kernel.  A DTensor on the card raises ``TypeError``.
+    The counter ``launches.causal_attention`` counts the launches of
+    either forward kernel.  A DTensor on the card raises ``TypeError``.
     """
     build.refuse_dtensors("flash_attention", q, k, v)
     _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, scale, window)
     return _forward(q, k, v, scale, window)
-
-
-causal_attention.launches = 0

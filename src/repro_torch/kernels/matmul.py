@@ -21,6 +21,7 @@ import functools
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -104,8 +105,8 @@ def matmul(
     cannot; on CPU tensors it computes ``matmul_plain``.  A CUDA call that
     autograd would record (grad mode on and an operand requiring grad)
     raises ``NotImplementedError``: the kernel has no backward yet.
-    ``matmul.launches`` counts the launches of either kernel.  A DTensor
-    on the card raises ``TypeError``.
+    The counter ``launches.matmul`` counts the launches of either
+    kernel.  A DTensor on the card raises ``TypeError``.
     """
     build.refuse_dtensors("block_matmul", x, y)
     out_dtype = out_dtype or x.dtype
@@ -144,8 +145,5 @@ def matmul(
             err = kernel(*args)
     if err != 0:
         raise RuntimeError(f"block_matmul launch failed with CUDA error {err}")
-    matmul.launches += 1
+    tracing.count("launches.matmul")
     return out
-
-
-matmul.launches = 0

@@ -32,7 +32,7 @@ forward and the backward take their fake forms, through ``_WKV6`` as on the
 card: the checks and allocations of the CUDA path, the backward's
 checkpoints included, with ``fake_launch``'s op in place of the launch,
 counted at the plain versions' FLOPs.  Neither the kernels nor the plain
-versions run, and the ``launches`` counters stay as they are.
+versions run, and the ``launches.*`` counters stay as they are.
 """
 from __future__ import annotations
 
@@ -41,6 +41,7 @@ import functools
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -256,7 +257,7 @@ def _forward(r, k, v, w, u, state) -> tuple[torch.Tensor, torch.Tensor]:
         )
     if err != 0:
         raise RuntimeError(f"wkv6 launch failed with CUDA error {err}")
-    wkv6.launches += 1
+    tracing.count("launches.wkv6")
     return out, final
 
 
@@ -280,8 +281,8 @@ def wkv6_bwd(
     16-byte boundaries, or it raises ``ValueError``) this launches the
     ``wkv6_bwd`` kernels on the current stream and raises if it cannot; on
     CPU tensors it computes ``wkv6_bwd_plain``, and on fake tensors it takes
-    its fake form.  ``wkv6_bwd.launches`` counts the calls that launched
-    them.
+    its fake form.  The counter ``launches.wkv6_bwd`` counts the calls
+    that launched them.
     """
     build.refuse_dtensors("wkv6_bwd", r, k, v, w, u, state, dout, dfinal)
     _check(r, k, v, w, u, state)
@@ -327,12 +328,9 @@ def wkv6_bwd(
         )
     if err != 0:
         raise RuntimeError(f"wkv6_bwd launch failed with CUDA error {err}")
-    wkv6_bwd.launches += 1
+    tracing.count("launches.wkv6_bwd")
     # du's per-(b, h, chunk) partials, summed in one fixed order (no atomics).
     return dr, dk, dv, dw, du_part.sum((0, 2)), dstate
-
-
-wkv6_bwd.launches = 0
 
 
 class _WKV6(torch.autograd.Function):
@@ -376,9 +374,9 @@ def wkv6(
     tensors it computes ``wkv6_plain``, and on fake tensors it takes its
     fake form.  When autograd records a CUDA or fake call
     (grad mode on and an input requiring grad) the call goes through
-    ``_WKV6``, whose backward is ``wkv6_bwd``.  ``wkv6.launches`` counts the
-    launches of either forward kernel.  A DTensor on the card raises
-    ``TypeError``.
+    ``_WKV6``, whose backward is ``wkv6_bwd``.  The counter
+    ``launches.wkv6`` counts the launches of either forward kernel.  A
+    DTensor on the card raises ``TypeError``.
     """
     build.refuse_dtensors("wkv6", r, k, v, w, u, state)
     _check(r, k, v, w, u, state)
@@ -387,6 +385,3 @@ def wkv6(
     if torch.is_grad_enabled() and any(a.requires_grad for a in (r, k, v, w, u, state) if a is not None):
         return _WKV6.apply(r, k, v, w, u, state)
     return _forward(r, k, v, w, u, state)
-
-
-wkv6.launches = 0

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels.flash_attention import causal_attention
 from repro_torch.models.layers import NEG_INF, Params, apply_rope, normal
 from repro_torch.models.sharding_utils import (
@@ -96,17 +97,18 @@ def attn_forward(
     positions that rise by one per token.  ``return_kv=True`` also returns
     the post-RoPE (k, v) in (B, S, KV, hd) for the KV cache.
     """
-    s = x.shape[1]
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    q, k_kv, v_kv = _project_qkv(x, p, n_heads, n_kv_heads, head_dim)
-    q = apply_rope(q, positions, rope_theta)
-    k_kv = apply_rope(k_kv, positions, rope_theta)
-    scale = 1.0 / np.sqrt(head_dim)
-    out = _attention(q, k_kv, v_kv, scale, window) @ p["wo"]
-    if return_kv:
-        return out, k_kv, v_kv
-    return out
+    with tracing.span("attention"):
+        s = x.shape[1]
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        q, k_kv, v_kv = _project_qkv(x, p, n_heads, n_kv_heads, head_dim)
+        q = apply_rope(q, positions, rope_theta)
+        k_kv = apply_rope(k_kv, positions, rope_theta)
+        scale = 1.0 / np.sqrt(head_dim)
+        out = _attention(q, k_kv, v_kv, scale, window) @ p["wo"]
+        if return_kv:
+            return out, k_kv, v_kv
+        return out
 
 
 def _attention(q, k, v, scale: float, window: int) -> torch.Tensor:

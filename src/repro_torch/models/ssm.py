@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import Params, normal
 from repro_torch.models.sharding_utils import is_fake
@@ -297,23 +298,25 @@ def ssm_forward(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (B, S, D); returns (y, final_state).  ``chunked``
     takes the chunked form for S > 1, as the reference does."""
-    B, S, _ = x.shape
-    d_inner = p["w_in"].shape[-1]
-    N = p["w_B"].shape[-1]
-    if h0 is None:
-        h0 = torch.zeros((B, d_inner, N), dtype=torch.float32, device=x.device)
-    u = x @ p["w_in"]
-    z = F.silu(x @ p["w_gate"])
-    B_t = x @ p["w_B"]
-    C_t = x @ p["w_C"]
-    dt = x @ p["w_dt"]
-    A = torch.exp(p["A_log"])
-    if chunked and S > 1:
-        y, h = selective_scan_chunked(u, B_t, C_t, dt, A, h0)
-    else:
-        y, h = selective_scan(u, B_t, C_t, dt, A, h0)
-    y = (y + p["D"] * u.float()).to(x.dtype)
-    return (y * z) @ p["w_out"], h
+    with tracing.span("ssm"):
+        B, S, _ = x.shape
+        d_inner = p["w_in"].shape[-1]
+        N = p["w_B"].shape[-1]
+        if h0 is None:
+            h0 = torch.zeros((B, d_inner, N), dtype=torch.float32, device=x.device)
+        u = x @ p["w_in"]
+        z = F.silu(x @ p["w_gate"])
+        B_t = x @ p["w_B"]
+        C_t = x @ p["w_C"]
+        dt = x @ p["w_dt"]
+        A = torch.exp(p["A_log"])
+        with tracing.span("ssm.scan"):
+            if chunked and S > 1:
+                y, h = selective_scan_chunked(u, B_t, C_t, dt, A, h0)
+            else:
+                y, h = selective_scan(u, B_t, C_t, dt, A, h0)
+        y = (y + p["D"] * u.float()).to(x.dtype)
+        return (y * z) @ p["w_out"], h
 
 
 def ssm_state_init(

@@ -43,6 +43,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -193,38 +194,42 @@ def _ffn(cfg: ArchConfig, p: Params, x2: torch.Tensor) -> tuple[torch.Tensor, to
     """The layer's MoE or dense MLP on the normed x2; returns (y, the MoE's
     load-balance loss or None)."""
     if "moe" in p:
-        out = moe_mod.moe_ffn(
-            x2, p["moe"], k=cfg.experts_per_token,
-            capacity_factor=cfg.capacity_factor,
-            weight_gather=cfg.moe_weight_gather,
-        )
+        with tracing.span("moe"):
+            out = moe_mod.moe_ffn(
+                x2, p["moe"], k=cfg.experts_per_token,
+                capacity_factor=cfg.capacity_factor,
+                weight_gather=cfg.moe_weight_gather,
+            )
         return out.y, out.aux_loss
-    return mlp_forward(x2, p["mlp"], cfg.mlp), None
+    with tracing.span("mlp"):
+        return mlp_forward(x2, p["mlp"], cfg.mlp), None
 
 
 def _transformer_layer(
-    cfg: ArchConfig, p: Params, h: torch.Tensor, window: int, positions: torch.Tensor
+    cfg: ArchConfig, p: Params, h: torch.Tensor, window: int, positions: torch.Tensor, index: int
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Pre-norm residual block over a whole sequence, from a zero state;
-    returns (h, the MoE's load-balance loss or None)."""
-    x = rms_norm(h, p["ln1"], cfg.norm_eps)
-    if cfg.block == "rwkv6":
-        y, _ = rwkv_mod.time_mix(
-            x, p["rwkv"], _zero_rwkv_state(cfg, h), n_heads=cfg.n_heads, eps=cfg.norm_eps
-        )
+    returns (h, the MoE's load-balance loss or None).  ``index`` is the
+    layer's, for its span."""
+    with tracing.span("layer", index=index):
+        x = rms_norm(h, p["ln1"], cfg.norm_eps)
+        if cfg.block == "rwkv6":
+            y, _ = rwkv_mod.time_mix(
+                x, p["rwkv"], _zero_rwkv_state(cfg, h), n_heads=cfg.n_heads, eps=cfg.norm_eps
+            )
+            h = h + y
+            x2 = rms_norm(h, p["ln2"], cfg.norm_eps)
+            y2, _ = rwkv_mod.channel_mix(x2, p["rwkv"], torch.zeros_like(h[:, 0]))
+            return h + y2, None
+        y = attn_mod.attn_forward(x, p["attn"], window=window, positions=positions, **_attn_kw(cfg))
+        if cfg.block == "hymba":
+            # Attention and SSM heads run in parallel on the same normed input;
+            # their outputs are averaged (arXiv:2411.13676 Sec. 2).
+            y_ssm, _ = ssm_mod.ssm_forward(x, p["ssm"], chunked=cfg.use_chunked_scan)
+            y = 0.5 * (y + y_ssm)
         h = h + y
-        x2 = rms_norm(h, p["ln2"], cfg.norm_eps)
-        y2, _ = rwkv_mod.channel_mix(x2, p["rwkv"], torch.zeros_like(h[:, 0]))
-        return h + y2, None
-    y = attn_mod.attn_forward(x, p["attn"], window=window, positions=positions, **_attn_kw(cfg))
-    if cfg.block == "hymba":
-        # Attention and SSM heads run in parallel on the same normed input;
-        # their outputs are averaged (arXiv:2411.13676 Sec. 2).
-        y_ssm, _ = ssm_mod.ssm_forward(x, p["ssm"], chunked=cfg.use_chunked_scan)
-        y = 0.5 * (y + y_ssm)
-    h = h + y
-    y2, aux = _ffn(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
-    return constrain(h + y2, _batch_token(cfg), None, None), aux
+        y2, aux = _ffn(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
+        return constrain(h + y2, _batch_token(cfg), None, None), aux
 
 
 # Products whose outputs the "dots" policy keeps for the backward pass, as
@@ -266,11 +271,11 @@ def backbone(
     kw = {}
     if remat_policy == "dots":
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
-    for p, window in zip(params["layers"], layer_window_values(cfg)):
+    for i, (p, window) in enumerate(zip(params["layers"], layer_window_values(cfg))):
         if remat:
-            h, a = checkpoint(_transformer_layer, cfg, p, h, window, positions, use_reentrant=False, **kw)
+            h, a = checkpoint(_transformer_layer, cfg, p, h, window, positions, i, use_reentrant=False, **kw)
         else:
-            h, a = _transformer_layer(cfg, p, h, window, positions)
+            h, a = _transformer_layer(cfg, p, h, window, positions, i)
         if a is not None:
             aux = aux + a
     return h, aux
@@ -294,27 +299,30 @@ def embed_inputs(
     * audio: ``batch["frame_embeds"]`` (B, S, frontend_dim) projected to
       d_model.
     """
-    if cfg.frontend == "vision":
-        tok = vocab_parallel_embedding(params["embed"], batch["tokens"])
-        patches = _project(batch["patch_embeds"], params["frontend_proj"]).to(tok.dtype)
-        b, n_p, s_text = patches.shape[0], patches.shape[1], tok.shape[1]
-        mask = torch.cat([
-            torch.zeros((b, n_p), dtype=torch.float32, device=tok.device),
-            torch.ones((b, s_text), dtype=torch.float32, device=tok.device),
-        ], dim=1)
-        return constrain(torch.cat([patches, tok], dim=1), _batch_token(cfg), None, None), mask
-    if cfg.frontend == "audio":
-        h = _project(batch["frame_embeds"], params["frontend_proj"])
+    with tracing.span("embed"):
+        if cfg.frontend == "vision":
+            tok = vocab_parallel_embedding(params["embed"], batch["tokens"])
+            patches = _project(batch["patch_embeds"], params["frontend_proj"]).to(tok.dtype)
+            b, n_p, s_text = patches.shape[0], patches.shape[1], tok.shape[1]
+            mask = torch.cat([
+                torch.zeros((b, n_p), dtype=torch.float32, device=tok.device),
+                torch.ones((b, s_text), dtype=torch.float32, device=tok.device),
+            ], dim=1)
+            return constrain(torch.cat([patches, tok], dim=1), _batch_token(cfg), None, None), mask
+        if cfg.frontend == "audio":
+            h = _project(batch["frame_embeds"], params["frontend_proj"])
+            return constrain(h, _batch_token(cfg), None, None), None
+        h = vocab_parallel_embedding(params["embed"], batch["tokens"])
         return constrain(h, _batch_token(cfg), None, None), None
-    return constrain(vocab_parallel_embedding(params["embed"], batch["tokens"]), _batch_token(cfg), None, None), None
 
 
 def unembed(cfg: ArchConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = h @ params["lm_head"]
-    if cfg.parallelism == "fsdp":
-        return constrain(logits, "batch_full", None, None)
-    return constrain(logits, "batch", None, "model")
+    with tracing.span("head"):
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        logits = h @ params["lm_head"]
+        if cfg.parallelism == "fsdp":
+            return constrain(logits, "batch_full", None, None)
+        return constrain(logits, "batch", None, "model")
 
 
 def forward_loss(
@@ -481,41 +489,45 @@ def prefill_step(
     expects; RWKV layers keep the recurrent state after the prompt, hymba
     layers the SSM state and the last normed input (``ssm_prev``).
     """
-    h, _ = embed_inputs(cfg, params, batch)
-    s = h.shape[1]
-    if s > max_len:
-        raise ValueError(f"prompt of {s} positions exceeds max_len {max_len}")
-    positions = torch.arange(s, device=h.device)
-    caches = []
-    for i, p in enumerate(params["layers"]):
-        x = rms_norm(h, p["ln1"], cfg.norm_eps)
-        if cfg.block == "rwkv6":
-            y, (tm_shift, wkv) = rwkv_mod.time_mix(
-                x, p["rwkv"], _zero_rwkv_state(cfg, h), n_heads=cfg.n_heads, eps=cfg.norm_eps
-            )
-            h = h + y
-            x2 = rms_norm(h, p["ln2"], cfg.norm_eps)
-            y2, cm_shift = rwkv_mod.channel_mix(x2, p["rwkv"], torch.zeros_like(h[:, 0]))
-            h = h + y2
-            caches.append({"tm_shift": tm_shift, "wkv": wkv, "cm_shift": cm_shift})
-            continue
+    inputs = batch["frame_embeds"] if cfg.frontend == "audio" else batch["tokens"]
+    with tracing.span("prefill", batch=inputs.shape[0], tokens=inputs.shape[0] * inputs.shape[1]):
+        h, _ = embed_inputs(cfg, params, batch)
+        s = h.shape[1]
+        if s > max_len:
+            raise ValueError(f"prompt of {s} positions exceeds max_len {max_len}")
+        positions = torch.arange(s, device=h.device)
+        caches = []
+        for i, p in enumerate(params["layers"]):
+            with tracing.span("layer", index=i):
+                x = rms_norm(h, p["ln1"], cfg.norm_eps)
+                if cfg.block == "rwkv6":
+                    y, (tm_shift, wkv) = rwkv_mod.time_mix(
+                        x, p["rwkv"], _zero_rwkv_state(cfg, h), n_heads=cfg.n_heads, eps=cfg.norm_eps
+                    )
+                    h = h + y
+                    x2 = rms_norm(h, p["ln2"], cfg.norm_eps)
+                    y2, cm_shift = rwkv_mod.channel_mix(x2, p["rwkv"], torch.zeros_like(h[:, 0]))
+                    h = h + y2
+                    caches.append({"tm_shift": tm_shift, "wkv": wkv, "cm_shift": cm_shift})
+                    continue
 
-        is_global = cfg.layer_is_global(i)
-        y, k_kv, v_kv = attn_mod.attn_forward(
-            x, p["attn"], window=0 if is_global else cfg.window, positions=positions,
-            return_kv=True, **_attn_kw(cfg),
-        )
-        size = max_len if is_global else min(cfg.window, max_len)
-        cache = {"k": _seed_cache(cfg, k_kv, size, h.dtype), "v": _seed_cache(cfg, v_kv, size, h.dtype)}
-        if cfg.block == "hymba":
-            y_ssm, cache["ssm"] = ssm_mod.ssm_forward(x, p["ssm"], chunked=cfg.use_chunked_scan)
-            cache["ssm_prev"] = x[:, -1, :].clone()      # not a view that holds all of x
-            y = 0.5 * (y + y_ssm)
-        h = h + y
-        y2, _ = _ffn(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
-        h = constrain(h + y2, _batch_token(cfg), None, None)
-        caches.append(cache)
-    return unembed(cfg, params, h[:, -1:, :]), caches
+                is_global = cfg.layer_is_global(i)
+                y, k_kv, v_kv = attn_mod.attn_forward(
+                    x, p["attn"], window=0 if is_global else cfg.window, positions=positions,
+                    return_kv=True, **_attn_kw(cfg),
+                )
+                size = max_len if is_global else min(cfg.window, max_len)
+                with tracing.span("cache"):
+                    cache = {"k": _seed_cache(cfg, k_kv, size, h.dtype), "v": _seed_cache(cfg, v_kv, size, h.dtype)}
+                if cfg.block == "hymba":
+                    y_ssm, cache["ssm"] = ssm_mod.ssm_forward(x, p["ssm"], chunked=cfg.use_chunked_scan)
+                    cache["ssm_prev"] = x[:, -1, :].clone()      # not a view that holds all of x
+                    y = 0.5 * (y + y_ssm)
+                h = h + y
+                y2, _ = _ffn(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
+                h = constrain(h + y2, _batch_token(cfg), None, None)
+                caches.append(cache)
+        return unembed(cfg, params, h[:, -1:, :]), caches
 
 
 # ==========================================================================

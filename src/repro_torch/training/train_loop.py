@@ -23,6 +23,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.sharding_utils import _is_dtensor, relayout, split_rows
 from repro_torch.models.transformer import forward_loss
@@ -61,50 +62,60 @@ def make_train_step(
     either way."""
 
     def grad_fn(params, mb):
-        flat = [p for _, p in leaves_with_paths(params)]
-        live = [p.detach().requires_grad_(True) for p in flat]
-        for x, p in zip(live, flat):
-            if _is_dtensor(p):
-                # A DTensor's gradient can come out a pending sum over the
-                # batch axes of the whole (unsplit) parameter; it is split
-                # as its parameter is (a reduce-scatter) as soon as it is
-                # made, so no rank holds whole gradients.
-                x.register_hook(functools.partial(relayout, pl=p.placements))
-        with torch.enable_grad():
-            loss, _ = forward_loss(
-                cfg, tree_unflatten(params, live), mb, remat=tcfg.remat,
-                remat_policy=tcfg.remat_policy, aux_weight=tcfg.aux_weight,
-            )
-            grads = torch.autograd.grad(loss, live, allow_unused=True)
-        # A leaf the loss does not reach (the audio frontend never reads
-        # ``embed``) gets a zero gradient, as jax.grad gives it.
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, flat)]
-        return loss.detach(), grads
+        with tracing.span("train.forward"):
+            flat = [p for _, p in leaves_with_paths(params)]
+            live = [p.detach().requires_grad_(True) for p in flat]
+            for x, p in zip(live, flat):
+                if _is_dtensor(p):
+                    # A DTensor's gradient can come out a pending sum over
+                    # the batch axes of the whole (unsplit) parameter; it is
+                    # split as its parameter is (a reduce-scatter) as soon
+                    # as it is made, so no rank holds whole gradients.
+                    x.register_hook(functools.partial(relayout, pl=p.placements))
+            with torch.enable_grad():
+                loss = forward_loss(
+                    cfg, tree_unflatten(params, live), mb, remat=tcfg.remat,
+                    remat_policy=tcfg.remat_policy, aux_weight=tcfg.aux_weight,
+                )[0]
+        with tracing.span("train.backward"):
+            with torch.enable_grad():
+                grads = torch.autograd.grad(loss, live, allow_unused=True)
+            # A leaf the loss does not reach (the audio frontend never reads
+            # ``embed``) gets a zero gradient, as jax.grad gives it.
+            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, flat)]
+            # The graph and the leaves made for it are freed here, with the
+            # backward.
+            loss = loss.detach()
+            del live
+        return loss, grads
 
     def train_step(params, opt_state, batch, lr_scale=1.0):
-        n = tcfg.n_microbatches
-        if n > 1:
-            grads, losses = None, []
-            for mb in _split_micro(batch, n):
-                loss, g = grad_fn(params, mb)
-                if grads is None:
-                    grads = [x.contiguous() for x in g]
-                else:
-                    for a, x in zip(grads, g):
-                        a.add_(x)
-                losses.append(loss)
-                del g   # this microbatch's gradients, before the next one's backward
-            for a in grads:
-                a.div_(n)
-            loss = sum(losses) / n
-        else:
-            loss, grads = grad_fn(params, batch)
-        gnorm = torch.sqrt(sum(s.float().square().sum() for g in grads for s in flat_slices(g)))
-        update = adamw_update_ if donate else adamw_update
-        new_params, new_opt = update(
-            tree_unflatten(params, grads), opt_state, params, tcfg.optimizer, lr_scale
-        )
-        return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
+        rows, seq = batch["labels"].shape[:2]
+        with tracing.span("train.step", rows=rows, tokens=rows * seq):
+            n = tcfg.n_microbatches
+            if n > 1:
+                grads, losses = None, []
+                for mb in _split_micro(batch, n):
+                    loss, g = grad_fn(params, mb)
+                    if grads is None:
+                        grads = [x.contiguous() for x in g]
+                    else:
+                        for a, x in zip(grads, g):
+                            a.add_(x)
+                    losses.append(loss)
+                    del g   # this microbatch's gradients, before the next one's backward
+                for a in grads:
+                    a.div_(n)
+                loss = sum(losses) / n
+            else:
+                loss, grads = grad_fn(params, batch)
+            with tracing.span("train.optimizer"):
+                gnorm = torch.sqrt(sum(s.float().square().sum() for g in grads for s in flat_slices(g)))
+                update = adamw_update_ if donate else adamw_update
+                new_params, new_opt = update(
+                    tree_unflatten(params, grads), opt_state, params, tcfg.optimizer, lr_scale
+                )
+            return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
 
     return train_step
 

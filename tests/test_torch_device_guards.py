@@ -15,6 +15,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import Replicate, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch import tracing
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import wkv6 as wkv6_mod
 from repro_torch.kernels.matmul import matmul
@@ -63,13 +64,14 @@ def test_dtensors_on_the_host_take_the_plain_versions(host_mesh):
     g.manual_seed(0)
     dist_calls = _kernel_calls(lambda shape, dt: distribute_tensor(
         torch.rand(shape, generator=g, dtype=dt) * 0.5 + 0.25, host_mesh, [Replicate(), Replicate()]))
-    before = (fa_mod.causal_attention.launches, wkv6_mod.wkv6.launches, matmul.launches)
+    counters = ("launches.causal_attention", "launches.wkv6", "launches.matmul")
+    before = [tracing.counter(c) for c in counters]
     with implicit_replication():
         for name, call in dist_calls.items():
             want, got = plain[name](), call()
             for a, b in zip(want if isinstance(want, tuple) else (want,), got if isinstance(got, tuple) else (got,)):
                 torch.testing.assert_close(b.full_tensor(), a, msg=name)
-    assert (fa_mod.causal_attention.launches, wkv6_mod.wkv6.launches, matmul.launches) == before
+    assert [tracing.counter(c) for c in counters] == before
 
 
 @pytest.mark.cuda

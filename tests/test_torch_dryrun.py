@@ -42,6 +42,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro.configs import ARCHS as REF_ARCHS
 from repro.configs import INPUT_SHAPES as REF_SHAPES
 from repro.launch import steps as ref_steps
+from repro_torch import tracing
 from repro_torch.configs import ARCHS, INPUT_SHAPES
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import wkv6 as wkv_mod
@@ -226,8 +227,8 @@ def test_fake_forms_are_the_plain_versions_shapes_and_flops(monkeypatch, kernel,
     want_flops, want = _flops(plain, [torch.zeros_like(a) if a is not None else None
                                       for a in make(dtype, "cpu")])
     mod = fa_mod if kernel.startswith("flash") else wkv_mod
-    launches = {k: getattr(mod, k).launches for k in ("causal_attention", "causal_attention_bwd", "wkv6", "wkv6_bwd")
-                if hasattr(mod, k)}
+    launches = {k: tracing.counter(f"launches.{k}")
+                for k in ("causal_attention", "causal_attention_bwd", "wkv6", "wkv6_bwd") if hasattr(mod, k)}
 
     def planted(*a, **k):
         raise AssertionError(f"{plain_name} reached on fake tensors")
@@ -238,7 +239,7 @@ def test_fake_forms_are_the_plain_versions_shapes_and_flops(monkeypatch, kernel,
     assert _signature(got) == _signature(want)
     assert all(t.device.type == device for t in (got if isinstance(got, tuple) else (got,)))
     assert got_flops == want_flops > 0
-    assert launches == {k: getattr(mod, k).launches for k in launches}
+    assert launches == {k: tracing.counter(f"launches.{k}") for k in launches}
 
 
 @pytest.mark.parametrize("kernel", list(KERNEL_CALLS))

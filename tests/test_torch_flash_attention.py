@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro.kernels import ops, ref
+from repro_torch import tracing
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels.flash_attention import causal_attention, causal_attention_plain
 
@@ -215,10 +216,10 @@ def test_cuda_kernel_matches_plain_version(dtype):
     for b, s, h, kv, hd, window in shapes:
         _, (tq, tk, tv) = _inputs(b, s, h, kv, hd, dtype, seed=s)
         tq, tk, tv = tq.cuda(), tk.cuda(), tv.cuda()
-        before = causal_attention.launches
+        before = tracing.counter("launches.causal_attention")
         got = causal_attention(tq, tk, tv, scale=hd**-0.5, window=window)
         torch.cuda.synchronize()
-        assert causal_attention.launches == before + 1
+        assert tracing.counter("launches.causal_attention") == before + 1
         want = causal_attention_plain(tq, tk, tv, scale=hd**-0.5, window=window)
         torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
@@ -239,10 +240,10 @@ def test_cuda_kernel_matches_plain_version_at_head_dim_96(dtype):
     ]:
         _, (tq, tk, tv) = _inputs(b, s, h, kv, 96, dtype, seed=s)
         tq, tk, tv = tq.cuda(), tk.cuda(), tv.cuda()
-        before = causal_attention.launches
+        before = tracing.counter("launches.causal_attention")
         got = causal_attention(tq, tk, tv, scale=96**-0.5, window=window)
         torch.cuda.synchronize()
-        assert causal_attention.launches == before + 1
+        assert tracing.counter("launches.causal_attention") == before + 1
         want = causal_attention_plain(tq, tk, tv, scale=96**-0.5, window=window)
         torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
 

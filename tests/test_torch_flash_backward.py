@@ -21,6 +21,7 @@ import torch
 
 from repro.kernels import ref
 from repro.models import layers as ref_layers
+from repro_torch import tracing
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels.flash_attention import (
     HEAD_DIMS,
@@ -241,10 +242,10 @@ def test_cuda_backward_kernel_matches_plain_version(dtype):
         _, tensors = _inputs(b, s, h, kv, hd, dtype, seed=s)
         q, k, v, do = (a.cuda() for a in tensors)
         scale = 1.0 / np.sqrt(hd)
-        before = causal_attention_bwd.launches
+        before = tracing.counter("launches.causal_attention_bwd")
         out, got = _port_grads(q, k, v, do, scale, window)
         torch.cuda.synchronize()
-        assert causal_attention_bwd.launches == before + 1
+        assert tracing.counter("launches.causal_attention_bwd") == before + 1
         _close(got, causal_attention_bwd_plain(q, k, v, out, do, scale=scale, window=window), dtype, "kernel")
 
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro.kernels import ops, ref
+from repro_torch import tracing
 from repro_torch.kernels import matmul as matmul_mod
 from repro_torch.kernels.matmul import matmul, matmul_plain
 from repro_torch.models.cnn import PAPER_CNN_SPECS, pointwise_shapes
@@ -96,9 +97,9 @@ def test_serve_mix_pointwise_shapes_match_reference(name):
 
 def test_cpu_tensors_take_the_plain_version_without_launching():
     x, y = torch.ones(3, 4), torch.ones(4, 5)
-    before = matmul.launches
+    before = tracing.counter("launches.matmul")
     assert torch.equal(matmul(x, y), matmul_plain(x, y))
-    assert matmul.launches == before
+    assert tracing.counter("launches.matmul") == before
 
 
 @pytest.mark.parametrize(
@@ -205,10 +206,10 @@ def test_cuda_kernel_matches_plain_version(dtype):
         tx, ty = tx.cuda(), ty.cuda()
         routes.add(matmul_mod.route(tx.dtype, shape[0], shape[2], shape[1]))
         for out_dtype in (torch.float32, torch.bfloat16):
-            before = matmul.launches
+            before = tracing.counter("launches.matmul")
             got = matmul(tx, ty, out_dtype=out_dtype)
             torch.cuda.synchronize()
-            assert matmul.launches == before + 1 and got.dtype == out_dtype
+            assert tracing.counter("launches.matmul") == before + 1 and got.dtype == out_dtype
             want = matmul_plain(tx, ty, out_dtype=out_dtype)
             tol = 2e-2 if torch.bfloat16 in (tx.dtype, out_dtype) else TOL[dtype]
             torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

@@ -22,6 +22,7 @@ from repro.models import transformer as ref_tf
 from repro.training import optimizer as ref_opt
 from repro.training import schedule as ref_sched
 from repro.training import train_loop as ref_loop
+from repro_torch import tracing
 from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens, batches_for_arch
 from repro_torch.launch import train as train_cli
@@ -457,7 +458,7 @@ def test_kernels_without_a_backward_raise_on_a_gradient_request():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from repro_torch.kernels.matmul import matmul
-    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
+    from repro_torch.kernels.wkv6 import wkv6
 
     x = torch.randn(16, 32, device="cuda", requires_grad=True)
     with pytest.raises(NotImplementedError, match="block_matmul"):
@@ -465,21 +466,20 @@ def test_kernels_without_a_backward_raise_on_a_gradient_request():
     # wkv6 has its backward kernel: a gradient request launches it.
     r, k, v, w = (torch.rand(1, 8, 2, 16, device="cuda") for _ in range(4))
     u = torch.zeros(2, 16, device="cuda", requires_grad=True)
-    before = wkv6_bwd.launches
+    before = tracing.counter("launches.wkv6_bwd")
     out, _ = wkv6(r, k, v, w, u)
     (du,) = torch.autograd.grad(out.sum(), [u])
-    assert wkv6_bwd.launches == before + 1 and bool(torch.isfinite(du).all())
+    assert tracing.counter("launches.wkv6_bwd") == before + 1 and bool(torch.isfinite(du).all())
     with torch.no_grad():   # serving: no gradient asked for, the kernels launch
         assert matmul(x, torch.randn(32, 8, device="cuda")).shape == (16, 8)
         assert wkv6(r, k, v, w, u)[0].shape == (1, 8, 2, 16)
-    assert wkv6_bwd.launches == before + 1
+    assert tracing.counter("launches.wkv6_bwd") == before + 1
 
 
 @pytest.mark.cuda
 def test_rwkv6_trains_on_the_card_and_serving_still_works():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
     from repro_torch.models.transformer import forward_loss, prefill_step
 
     cfg = get_arch("rwkv6-7b").reduced()
@@ -488,13 +488,13 @@ def test_rwkv6_trains_on_the_card_and_serving_still_works():
     batches = batches_for_arch(cfg, 4, 64, device="cuda")
     tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3), n_microbatches=2)
     step, opt = make_train_step(cfg, tcfg), adamw_init(params, tcfg.optimizer)
-    fwd, bwd = wkv6.launches, wkv6_bwd.launches
+    fwd, bwd = tracing.counter("launches.wkv6"), tracing.counter("launches.wkv6_bwd")
     for _ in range(3):
         params, opt, metrics = step(params, opt, next(batches))
         assert bool(torch.isfinite(metrics["loss"])) and bool(torch.isfinite(metrics["grad_norm"]))
     # Per layer and microbatch: two forwards (remat) and one backward.
-    assert wkv6.launches - fwd == 2 * cfg.n_layers * 2 * 3
-    assert wkv6_bwd.launches - bwd == cfg.n_layers * 2 * 3
+    assert tracing.counter("launches.wkv6") - fwd == 2 * cfg.n_layers * 2 * 3
+    assert tracing.counter("launches.wkv6_bwd") - bwd == cfg.n_layers * 2 * 3
     live = [p.detach().requires_grad_(True) for _, p in leaves_with_paths(params)]
     loss, _ = forward_loss(cfg, tree_unflatten(params, live), next(batches))
     grads = torch.autograd.grad(loss, live)

@@ -27,6 +27,7 @@ import torch
 
 from repro.kernels import ops, ref
 from repro.models.rwkv import wkv_scan as ref_wkv_scan
+from repro_torch import tracing
 from repro_torch.kernels import wkv6 as wkv6_mod
 from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
 
@@ -143,10 +144,10 @@ def test_cuda_kernel_matches_plain_version(dtype):
         r, k, v, w, u = (a.cuda() for a in _torch(*_inputs(b, t, h, hd, seed=t)))
         r, k, v = (a.to(getattr(torch, dtype)) for a in (r, k, v))
         for state in (None, torch.randn(b, h, hd, hd, device="cuda")):
-            before = wkv6.launches
+            before = tracing.counter("launches.wkv6")
             out, final = wkv6(r, k, v, w, u, state)
             torch.cuda.synchronize()
-            assert wkv6.launches == before + 1
+            assert tracing.counter("launches.wkv6") == before + 1
             want_out, want_final = wkv6_plain(r, k, v, w, u, state)
             torch.testing.assert_close(out, want_out, rtol=2e-3, atol=2e-3)
             torch.testing.assert_close(final, want_final, rtol=2e-3, atol=2e-3)
@@ -189,11 +190,11 @@ def test_cuda_backward_kernel_matches_autograd_of_plain_version(dtype):
             for fn in (wkv6, wkv6_plain):
                 leaves = [a.cuda().to(tdt if i < 3 else torch.float32).requires_grad_(True)
                           for i, a in enumerate(_torch(r, k, v, w, u, s0))]
-                before = wkv6_mod.wkv6_bwd.launches
+                before = tracing.counter("launches.wkv6_bwd")
                 out, final = fn(*leaves)
                 grads.append(torch.autograd.grad((out * dout).sum() + (final * dfinal).sum(), leaves))
                 torch.cuda.synchronize()
-                assert wkv6_mod.wkv6_bwd.launches == before + (fn is wkv6)
+                assert tracing.counter("launches.wkv6_bwd") == before + (fn is wkv6)
             want = grads[1]
             sq = torch.cat([x.float().reshape(-1, hd).norm(dim=-1).square() for x in want[:4]])
             floor = float(0.1 * sq.mean().sqrt())

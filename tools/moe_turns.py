@@ -47,11 +47,12 @@ NUM = r"([0-9.]+)"
 
 def zoo_readings(text: str) -> dict:
     """The numbers ``phase_zoo_path`` prints: prefill and decode ms, peak
-    GiB, the device's busy share and the ``moe_ffn`` range's share, in
-    the profiled prefill and in the profiled decode steps."""
+    GiB, the device's busy share and the MoE range's share (the program's
+    ``moe`` span; ``moe_ffn`` in trees before it), in the profiled prefill
+    and in the profiled decode steps."""
     warm = re.search(rf"prefill of .* positions {NUM} ms, decode {NUM} ms per step.*peak memory {NUM} GiB", text)
     busy = re.findall(rf"device busy {NUM} ms of {NUM} ms wall", text)
-    share = re.findall(rf"range moe_ffn x\d+: kernels inside it {NUM} ms, {NUM}%", text)
+    share = re.findall(rf"range (?:moe_ffn|moe) x\d+: kernels inside it {NUM} ms, {NUM}%", text)
     out = {"prefill_ms": float(warm[1]), "decode_ms": float(warm[2]), "peak_gib": float(warm[3])}
     for part, b, r in zip(("prefill", "decode"), busy, share):
         out[f"{part}_device_ms"] = float(b[0])
@@ -73,7 +74,7 @@ def train_readings(text: str, rec: dict | None) -> dict:
     if step:
         out["step_ms"] = float(step[1])
     busy = re.search(rf"one train step: device busy {NUM} ms", text)
-    share = re.search(rf"range moe_ffn x(\d+): kernels inside it {NUM} ms, {NUM}%", text)
+    share = re.search(rf"range (?:moe_ffn|moe) x(\d+): kernels inside it {NUM} ms, {NUM}%", text)
     if busy:
         out["device_ms"] = float(busy[1])
     if share:
@@ -122,7 +123,7 @@ def one_turn(tree: Path) -> dict:
     record["before 7g"] = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
                            "large_tensors": [(tuple(t.shape), str(t.dtype), t.nbytes / 2**30) for t in left]}
     del left
-    # The step's profile with its host ops, for the moe_ffn range, in both
+    # The step's profile with its host ops, for the MoE range, in both
     # trees alike.
     breakdown = cs.device_breakdown
     cs.device_breakdown = lambda label, fn, host_ops=True: breakdown(label, fn, True)

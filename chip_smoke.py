@@ -67,8 +67,14 @@ and prints no result line):
    every layer) against ``prefill_step`` of 16 positions (after the
    patches) plus teacher-forced ``decode_step``s (which launch no hand
    kernel), MoE layers at a capacity with no drops; then hymba's SSM heads
-   at full width on 256 tokens, the sequential scan against the chunked
-   one (also at strong decays);
+   at full width on 256 tokens, the sequential scan against the
+   ``selective_scan`` kernel (prefill's) and the closed form (the train
+   step's), also at strong decays; then the kernel at (1, 1024 and 4096,
+   3200, 16) in bfloat16 against the sequential scan, timed beside the
+   closed form, its plain version, the sequential scan and its byte bound
+   (the kernel is built at its first call); and the kernel at phase 6's
+   shapes against the sequential scan, at mild and strong decays, timed
+   beside its plain version and its byte bound (the kernels line's row);
 7a. flash_attention's backward kernel against ``causal_attention_bwd_plain``
    on the card (each shape prints its route, ``bwd_route``: bfloat16 at hd
    64, 96, 128 and 256 on wgmma, the rest on split TF32): the shapes of
@@ -251,7 +257,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 )
 from repro_torch.kernels.matmul import matmul, matmul_plain  # noqa: E402
 from repro_torch.kernels.matmul import route as matmul_route  # noqa: E402
+from repro_torch.kernels import selective_scan as scan_kernel  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv6_mod  # noqa: E402
+from repro_torch.kernels.selective_scan import selective_scan_plain  # noqa: E402
 from repro_torch.kernels.wkv6 import route as wkv_route  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd, wkv6_bwd_plain, wkv6_plain  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -340,6 +348,15 @@ KERNELS = [
         "source": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
         "replaces": "src/repro/kernels/wkv6.py:30",
         "wrapper": wkv6_bwd,
+    },
+    {
+        # hymba's selective scan, which the JAX package runs as jnp code
+        # (models/ssm.py::selective_scan_chunked), in no TPU kernel.
+        "name": "selective_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+        "replaces": "none",
+        "wrapper": scan_kernel.selective_scan,
     },
 ]
 
@@ -687,7 +704,7 @@ def phase_main_path() -> tuple[Plan, dict[str, int], dict[str, int]]:
     # have no attention or recurrence.
     expected = REQUESTS * (sum(plan.partition) + sum(FORCED_PLAN.partition))
     assert launches == {"block_matmul": expected, "flash_attention": 0, "wkv6": 0, "flash_attention_bwd": 0,
-                        "wkv6_bwd": 0}, (launches, expected)
+                        "wkv6_bwd": 0, "selective_scan": 0}, (launches, expected)
     # Every product of the path is float32 and takes the CUDA-core route.
     assert routes == {"cuda-core": expected}, (dict(routes), expected)
     return plan, launches, dict(routes)
@@ -869,6 +886,7 @@ ZOO_CHECK = {
 ZOO_CHECK_PREFILL = 16   # text tokens or frames; the vision frontend's patches come first
 ZOO_CHECK_TOL = 2e-3   # tests/test_prefill_decode.py's prefill tolerance
 SCAN_LEN, SCAN_TOL = 256, 1e-3   # hymba's sequential scan against the chunked one
+SCAN_TIME_LENS = (1024, 4096)    # the benchmark's shortest and longest hymba prompts
 FLASH_TOL = {torch.float32: 5e-4, torch.bfloat16: 3e-2}   # TestFlashAttention
 # FLASH_TOL is absolute and late rows of a long causal row are small (about
 # 0.04 at S = 2048), so each output row (one query of one head) is also held
@@ -1036,7 +1054,7 @@ def check_wkv6(shapes, dtypes, decays="mild") -> float:
 def recording_kernel_calls(calls: Counter):
     """Count each (kernel, shape, dtype) the model path calls its wrappers
     with.  The wrappers themselves, and their launch counts, are unchanged."""
-    flash, recur = attention.causal_attention, rwkv.wkv6
+    flash, recur, scan = attention.causal_attention, rwkv.wkv6, scan_kernel.selective_scan
 
     def flash_rec(q, k, v, *, scale, window=0):
         calls["flash_attention", (*q.shape[:3], k.shape[2], q.shape[3], window), q.dtype] += 1
@@ -1046,11 +1064,15 @@ def recording_kernel_calls(calls: Counter):
         calls["wkv6", tuple(r.shape), r.dtype] += 1
         return recur(r, k, v, w, u, state)
 
-    attention.causal_attention, rwkv.wkv6 = flash_rec, wkv_rec
+    def scan_rec(u, B_t, C_t, dt, A, h0):
+        calls["selective_scan", (*u.shape, B_t.shape[-1]), u.dtype] += 1
+        return scan(u, B_t, C_t, dt, A, h0)
+
+    attention.causal_attention, rwkv.wkv6, scan_kernel.selective_scan = flash_rec, wkv_rec, scan_rec
     try:
         yield
     finally:
-        attention.causal_attention, rwkv.wkv6 = flash, recur
+        attention.causal_attention, rwkv.wkv6, scan_kernel.selective_scan = flash, recur, scan
 
 
 # Each kernel's launch count at the last zero_launches().
@@ -1224,6 +1246,8 @@ def phase_zoo_path(name: str, calls: Counter) -> dict[str, int]:
         "wkv6": cfg.n_layers if cfg.block == "rwkv6" else 0,
         "flash_attention_bwd": 0,
         "wkv6_bwd": 0,
+        # prefill's chunked scan, one a layer; decode's sequential one launches nothing
+        "selective_scan": cfg.n_layers if cfg.block == "hymba" else 0,
     }
     print(f"  launches: after prefill {after_prefill}, after {ZOO_DECODE} decode steps {after_decode}")
     assert after_prefill == after_decode == want, (after_prefill, after_decode, want)
@@ -1383,50 +1407,122 @@ def phase_zoo_check(name: str) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_ssm_scans() -> dict:
+def scan_bound(b, s, d, n, dtype) -> float:
+    """Least time (ms) of a selective scan: u and dt (``dtype``) and B_t and
+    C_t read, y (float32) written, A and h0 read and the final state
+    written, once each at the memory rate.  Its 4N + 8 float32 operations
+    per (token, channel) take less at 67 TFLOP/s, so the bytes bound it."""
+    size = torch.empty((), dtype=dtype).element_size()
+    n_bytes = b * s * d * (2 * size + 4) + 2 * b * s * n * size + d * 4 + 2 * b * d * n * 4
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_ssm_scans(calls: Counter) -> dict:
     """hymba-1.5b's SSM heads at full width on SCAN_LEN tokens, float32:
     ``ssm_forward`` with the sequential scan (decode's) against the chunked
-    one (prefill's); then the two scans alone from a random state at mild
-    decays (softplus(dt) about 0.05, so that the state lasts the whole
-    run) and at strong ones (about 6, far past the reference's chunked
-    form's float32 limit), where the chunked one must stay finite.
-    Returns each scan's time (CUDA events)."""
+    one (prefill's, which takes the ``selective_scan`` kernel); then the
+    sequential scan alone against the kernel and the closed form (the
+    train step's) from a random state at mild decays (softplus(dt) about
+    0.05, so that the state lasts the whole run) and at strong ones (about
+    6, far past the reference's chunked form's float32 limit), where both
+    must stay finite.  Then, at (1, S, 3200, 16) for S in SCAN_TIME_LENS
+    with bfloat16 inputs (the prefill path's), the kernel against the
+    sequential scan and each one's time (CUDA events; the kernel also from
+    a CUDA graph) beside the closed form's, the plain version's and the
+    byte bound.  Last, at each shape and type the model-zoo path called the
+    kernel with (``calls``), the kernel against the sequential scan from a
+    random state at mild and strong decays, and its times at mild decays:
+    the totals over one prefill (each shape times its calls) and the worst
+    error there are the kernels line's numbers."""
     cfg = ARCHS["hymba-1.5b"]
     g = torch.Generator(device=DEVICE).manual_seed(4)
     p = ssm.ssm_init(g, cfg.d_model, cfg.ssm_inner, cfg.ssm_state, torch.float32, DEVICE)
     x = torch.randn((ZOO_BATCH, SCAN_LEN, cfg.d_model), generator=g, device=DEVICE)
     worst = 0.0
 
-    def agree(label, seq, chunk):
+    def agree(label, seq, other) -> float:
         nonlocal worst
-        for a, b, what in zip(seq, chunk, ("y", "final state")):
+        pair = 0.0
+        for a, b, what in zip(seq, other, ("y", "final state")):
             err = float((a - b).abs().max())
             finite = bool(torch.isfinite(b).all())
             ok = finite and torch.allclose(b, a, rtol=SCAN_TOL, atol=SCAN_TOL)
             print(f"  {label}, {what}: max_abs_err={err:.3e} (|seq| up to {float(a.abs().max()):.2f}) "
                   f"finite={finite} tol={SCAN_TOL} {'ok' if ok else 'MISMATCH'}")
             if not ok:
-                raise AssertionError(f"hymba's chunked scan disagrees with the sequential one ({label})")
-            worst = max(worst, err)
+                raise AssertionError(f"hymba's scans disagree ({label})")
+            pair = max(pair, err)
+        worst = max(worst, pair)
+        return pair
 
-    agree(f"ssm_forward (B, S, D)={tuple(x.shape)}", ssm.ssm_forward(x, p), ssm.ssm_forward(x, p, chunked=True))
-    u = torch.randn((ZOO_BATCH, SCAN_LEN, cfg.ssm_inner), generator=g, device=DEVICE)
-    bt, ct = (0.5 * torch.randn((ZOO_BATCH, SCAN_LEN, cfg.ssm_state), generator=g, device=DEVICE) for _ in range(2))
-    h0 = 0.5 * torch.randn((ZOO_BATCH, cfg.ssm_inner, cfg.ssm_state), generator=g, device=DEVICE)
+    agree(f"ssm_forward (B, S, D)={tuple(x.shape)}, kernel", ssm.ssm_forward(x, p), ssm.ssm_forward(x, p, chunked=True))
     a = torch.exp(p["A_log"])
+
+    def scan_inputs(b, s, shift, dtype):
+        u = torch.randn((b, s, cfg.ssm_inner), generator=g, device=DEVICE)
+        bt, ct = (0.5 * torch.randn((b, s, cfg.ssm_state), generator=g, device=DEVICE) for _ in range(2))
+        dt = shift + 0.5 * torch.randn((b, s, cfg.ssm_inner), generator=g, device=DEVICE)
+        h0 = 0.5 * torch.randn((b, cfg.ssm_inner, cfg.ssm_state), generator=g, device=DEVICE)
+        return tuple(t.to(dtype) for t in (u, bt, ct, dt)) + (a, h0)
+
     for shift in (-3.0, 6.0):
-        dt = shift + 0.5 * torch.randn((ZOO_BATCH, SCAN_LEN, cfg.ssm_inner), generator=g, device=DEVICE)
-        per_chunk = (F.softplus(dt) * a).reshape(ZOO_BATCH, -1, 32, cfg.ssm_inner).sum(2)
-        args = (u, bt, ct, dt, a, h0)
-        agree(f"scans alone from a random state, a 32-token chunk summing {float(per_chunk.min()):.1f} to "
-              f"{float(per_chunk.max()):.1f} of -log a", ssm.selective_scan(*args), ssm.selective_scan_chunked(*args))
-    times = {
-        "sequential_ms": time_ms(lambda: ssm.selective_scan(*args), 3, warmup=1),
-        "chunked_ms": time_ms(lambda: ssm.selective_scan_chunked(*args), 10, warmup=2),
-    }
-    print(f"  times at (B, S, d_inner, N)=({ZOO_BATCH}, {SCAN_LEN}, {cfg.ssm_inner}, {cfg.ssm_state}), "
-          f"CUDA events: sequential {times['sequential_ms']:.3f} ms, chunked {times['chunked_ms']:.3f} ms")
-    return {"max_abs_err": worst, **times}
+        args = scan_inputs(ZOO_BATCH, SCAN_LEN, shift, torch.float32)
+        per_chunk = (F.softplus(args[3]) * a).reshape(ZOO_BATCH, -1, 32, cfg.ssm_inner).sum(2)
+        label = (f"from a random state, a 32-token chunk summing {float(per_chunk.min()):.1f} to "
+                 f"{float(per_chunk.max()):.1f} of -log a")
+        seq = ssm.selective_scan(*args)
+        agree(f"sequential vs kernel {label}", seq, scan_kernel.selective_scan(*args))
+        agree(f"sequential vs closed form {label}", seq, ssm._closed_form(*args, 32))
+    times = {}
+    for s in SCAN_TIME_LENS:
+        args = scan_inputs(1, s, -3.0, torch.bfloat16)
+        agree(f"sequential vs kernel at (1, {s}, {cfg.ssm_inner}, {cfg.ssm_state}) bf16", ssm.selective_scan(*args),
+              scan_kernel.selective_scan(*args))
+        row = {
+            "kernel_ms": time_ms(lambda: scan_kernel.selective_scan(*args), 50, warmup=5),
+            "kernel_graph_ms": time_graph_ms(lambda: scan_kernel.selective_scan(*args)),
+            "closed_form_ms": time_ms(lambda: ssm._closed_form(*args, 32), 5, warmup=1),
+            "plain_ms": time_ms(lambda: selective_scan_plain(*args), 3, warmup=1),
+            "sequential_ms": time_ms(lambda: ssm.selective_scan(*args), 1, warmup=1),
+            "bound_ms": scan_bound(1, s, cfg.ssm_inner, cfg.ssm_state, torch.bfloat16),
+            "segment_len": scan_kernel.segment_len(1, s, cfg.ssm_inner,
+                                                   torch.cuda.get_device_properties(DEVICE).multi_processor_count),
+        }
+        print(f"  times at (B, S, d_inner, N)=(1, {s}, {cfg.ssm_inner}, {cfg.ssm_state}) bf16, ms a call "
+              f"(CUDA events): kernel {row['kernel_ms']:.4f} eager / {row['kernel_graph_ms']:.4f} graph "
+              f"(segments of {row['segment_len']}), bound {row['bound_ms']:.4f} (bytes; "
+              f"{100 * row['bound_ms'] / row['kernel_graph_ms']:.1f}% graph), closed form "
+              f"{row['closed_form_ms']:.3f}, plain {row['plain_ms']:.3f}, sequential {row['sequential_ms']:.3f}")
+        times[s] = row
+    path = Counter()
+    path_worst = 0.0
+    print("selective_scan at its model-zoo path's shapes (ms per call, CUDA events):")
+    for (kname, key, dtype), n in calls.items():
+        if kname != "selective_scan":
+            continue
+        b, s, d, n_state = key
+        for shift in (6.0, -3.0):     # the times below at mild decays
+            args = scan_inputs(b, s, shift, dtype)
+            path_worst = max(path_worst, agree(
+                f"sequential vs kernel at (B, S, d_inner, N)={key} {str(dtype)[6:]}, dt shift {shift}",
+                ssm.selective_scan(*args), scan_kernel.selective_scan(*args)))
+        t = {
+            "ms": time_ms(lambda: scan_kernel.selective_scan(*args), 50, warmup=5),
+            "graph_ms": time_graph_ms(lambda: scan_kernel.selective_scan(*args)),
+            "plain_ms": time_ms(lambda: selective_scan_plain(*args), 3, warmup=1),
+            "bound_ms": scan_bound(b, s, d, n_state, dtype),
+        }
+        print(f"  {str(dtype)[6:]} (B, S, d_inner, N)={key}, {n} calls per prefill: kernel={t['ms']:.6f} "
+              f"graph={t['graph_ms']:.6f} plain={t['plain_ms']:.6f} library=none bound={t['bound_ms']:.6f} "
+              f"(bytes) share={t['bound_ms'] / t['ms']:.4%} graph share={t['bound_ms'] / t['graph_ms']:.4%}")
+        for k2, v in t.items():
+            path[k2] += n * v
+    assert path, "the model-zoo path called no selective_scan"
+    prefill = {"ms": path["ms"], "plain_ms": path["plain_ms"], "bound_ms": path["bound_ms"], "bound_by": "bytes",
+               "library_ms": None, "graph_ms": path["graph_ms"], "library_graph_ms": None}
+    print("  one prefill: " + ", ".join(
+        f"{k2}={v:.6f}" if isinstance(v, float) else f"{k2}={v}" for k2, v in prefill.items()))
+    return {"max_abs_err": worst, "times": times, "path_max_abs_err": path_worst, "path_prefill": prefill}
 
 
 def flash_bound(key, dtype, ops_per_s=None) -> tuple[float, str]:
@@ -3431,7 +3527,9 @@ def run_phases(phase, kind: str, planner: ProcessPoolExecutor, plans: dict, t_st
                   path_shapes, path_dtypes + (torch.float32,), "strong")
     for name in ZOO_CHECK:
         phase(f"model-zoo correctness: {name} float32", phase_zoo_check, name)
-    scans = phase("model-zoo correctness: hymba's sequential scan against the chunked one", phase_ssm_scans)
+    scans = phase("model-zoo correctness: hymba's sequential scan against the kernel and the closed form",
+                  phase_ssm_scans, calls)
+    checks["selective_scan"] = {"max_abs_err": scans["path_max_abs_err"]}
 
     phase("kernel vs plain: flash_attention at the train path's shapes, and against float64", check_flash,
           TRAIN_BWD_SHAPES, (torch.float32,), True)
@@ -3506,6 +3604,7 @@ def run_phases(phase, kind: str, planner: ProcessPoolExecutor, plans: dict, t_st
     torch_ops["online"] = phase("torch ops: online control on the Fig. 8 trace", phase_online)
     times = {"block_matmul": phase("times: block_matmul", phase_times, matmul_k)}
     times.update(phase("times: flash_attention and wkv6", phase_zoo_times, calls))
+    times["selective_scan"] = scans["path_prefill"]
     times["flash_attention_bwd"], train_forward = phase("times: flash_attention_bwd", phase_train_times, train_calls)
     times["wkv6_bwd"], wkv_train_forward = phase("times: wkv6_bwd", phase_wkv_train_times, train_calls,
                                                  train["rwkv6-7b"]["bwd_kernel_ms_per_call"])
@@ -3549,6 +3648,9 @@ def run_phases(phase, kind: str, planner: ProcessPoolExecutor, plans: dict, t_st
                 "smem_bytes": wkv_bwd_resources["smem_bytes"], "sass_hmma": wkv_bwd_hmma,
                 "train_bf16": fam_times["wkv6_bwd"]}
                if name == "wkv6_bwd" else {}),
+            **({"shapes": sorted({str(key) for (k2, key, _dt) in calls if k2 == name}),
+                "prompt_times": scans["times"]}
+               if name == "selective_scan" else {}),
         })
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"torch_ops": torch_ops, "ssm_scans": scans}))

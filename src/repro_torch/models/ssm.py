@@ -10,7 +10,10 @@ N:
 with B_t, C_t, dt_t data-dependent projections of the input.
 ``selective_scan`` steps it token by token (decode, and the reference's
 baseline); ``selective_scan_chunked`` is the closed form over chunks of L
-tokens, with its products over whole chunks.
+tokens, with its products over whole chunks.  For real CUDA tensors that
+need no gradient (prefill) ``selective_scan_chunked`` launches the
+hand-written kernel ``kernels/selective_scan.py`` instead, which walks
+segments of tokens with each channel's state in registers.
 
 The reference's chunked form scales by ``exp(-cumsum(log a))``, which
 grows without bound and overflows float32 once a chunk's
@@ -28,8 +31,9 @@ import torch.nn.functional as F
 
 from repro_torch import tracing
 from repro_torch.device import resolve_device
+from repro_torch.kernels import selective_scan as scan_kernel
 from repro_torch.models.layers import Params, normal
-from repro_torch.models.sharding_utils import is_fake
+from repro_torch.models.sharding_utils import _is_dtensor, head_placements, is_fake, like, on_shards
 
 # Bytes of the (B, chunks, L, L, d_inner) float32 decay tensor that
 # ``selective_scan_chunked`` holds at once (hymba-1.5b: 26 MB per chunk).
@@ -234,6 +238,15 @@ def _chunk_states(a: torch.Tensor, u: torch.Tensor, h0: torch.Tensor):
     return torch.cat([h0[:, None], after[:, :-1]], dim=1), after[:, -1]
 
 
+def _takes_kernel(*tensors: torch.Tensor) -> bool:
+    """Whether the scan runs the hand-written kernel: real (not fake) CUDA
+    tensors, and no gradient needed."""
+    x = tensors[0]
+    if x.device.type != "cuda" or is_fake(x):
+        return False
+    return not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
+
+
 def selective_scan_chunked(
     x: torch.Tensor,      # (B, S, d_inner)
     B_t: torch.Tensor,    # (B, S, N)
@@ -244,6 +257,28 @@ def selective_scan_chunked(
     *,
     chunk: int = 32,
 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scan over the whole sequence, float32.  Real CUDA tensors that
+    need no gradient take the ``selective_scan`` kernel, at any S
+    (``_takes_kernel``); the train step, fake tensors (a counted dry run)
+    and CPU tensors take the chunked closed form (``_closed_form``)."""
+    if _takes_kernel(x, B_t, C_t, dt, A, h0):
+        return _kernel_scan(x, B_t, C_t, dt, A, h0)
+    return _closed_form(x, B_t, C_t, dt, A, h0, chunk)
+
+
+def _kernel_scan(x, B_t, C_t, dt, A, h0):
+    """The ``selective_scan`` kernel; on DTensors, on each rank's shards:
+    batch rows and d_inner channels are independent, so the batch keeps
+    its shards and d_inner its split where the split divides it (a
+    sequence shard is gathered)."""
+    if not _is_dtensor(x):
+        return scan_kernel.selective_scan(x, B_t, C_t, dt, A, h0)
+    px = head_placements(x, 0, 2, (x.shape[2],))
+    pb, pa, ph = like(px, {0: 0}), like(px, {2: 0}), like(px, {0: 0, 2: 1})
+    return on_shards(scan_kernel.selective_scan, [x, B_t, C_t, dt, A, h0], [px, pb, pb, px, pa, ph], [px, ph])
+
+
+def _closed_form(x, B_t, C_t, dt, A, h0, chunk):
     """Chunked closed form, float32; falls back to ``selective_scan`` when
     the chunk does not divide S, as the reference does.
 

@@ -27,8 +27,9 @@ profiler range named after a function is never confused with a span.
 
 ``count(name)`` adds to a counter, always, and ``counter(name)`` reads it:
 ``launches.matmul``, ``launches.causal_attention``,
-``launches.causal_attention_bwd``, ``launches.wkv6`` and
-``launches.wkv6_bwd`` count the hand-written kernels' launches.
+``launches.causal_attention_bwd``, ``launches.wkv6``,
+``launches.wkv6_bwd`` and ``launches.selective_scan`` count the
+hand-written kernels' launches (``selective_scan``: a call of its three).
 """
 from __future__ import annotations
 
